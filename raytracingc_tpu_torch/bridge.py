@@ -1,0 +1,73 @@
+"""Numpy bridge: the JAX package's scene and camera arrays → the port's objects.
+
+The caller turns each JAX array into numpy (``np.asarray``) and passes the
+fields by name; the port never sees a ``jax.Array``. This is how the tests
+make both packages compute on the same scene::
+
+    tri = {f: np.asarray(getattr(js.triangles, f)) for f in TRIANGLE_FIELDS}
+    sph = {f: np.asarray(getattr(js.spheres, f)) for f in SPHERE_FIELDS}
+    env = {f: np.asarray(getattr(js.env, f)) for f in ENV_FIELDS}
+    scene = scene_from_numpy(tri, sph, env, js.n_triangles, js.n_spheres)
+
+:func:`scene_to_numpy` goes the other way, for round-trip checks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from raytracingc_tpu_torch.camera import Camera
+from raytracingc_tpu_torch.scene.types import EnvParams, Scene, Spheres, Triangles
+
+TRIANGLE_FIELDS = tuple(f.name for f in dataclasses.fields(Triangles))
+SPHERE_FIELDS = tuple(f.name for f in dataclasses.fields(Spheres))
+ENV_FIELDS = tuple(f.name for f in dataclasses.fields(EnvParams))
+CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
+
+
+def _build(cls, fields: tuple[str, ...], arrays: Mapping[str, np.ndarray], device):
+    missing = set(fields) - set(arrays)
+    if missing:
+        raise KeyError(f"{cls.__name__}: missing fields {sorted(missing)}")
+    return cls(**{
+        f: torch.from_numpy(np.array(arrays[f], np.float32)).to(device)
+        for f in fields
+    })
+
+
+def scene_from_numpy(triangles: Mapping[str, np.ndarray],
+                     spheres: Mapping[str, np.ndarray],
+                     env: Mapping[str, np.ndarray],
+                     n_triangles: int, n_spheres: int, device="cpu") -> Scene:
+    """Build a port ``Scene`` from the JAX scene's fields, as numpy."""
+    return Scene(
+        triangles=_build(Triangles, TRIANGLE_FIELDS, triangles, device),
+        spheres=_build(Spheres, SPHERE_FIELDS, spheres, device),
+        env=_build(EnvParams, ENV_FIELDS, env, device),
+        n_triangles=int(n_triangles),
+        n_spheres=int(n_spheres),
+    )
+
+
+def camera_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> Camera:
+    """Build a port ``Camera`` from ``origin``, ``ex``, ``ey``, ``ez``, ``fov``."""
+    return _build(Camera, CAMERA_FIELDS, arrays, device)
+
+
+def scene_to_numpy(scene: Scene) -> dict:
+    """``{"triangles": {...}, "spheres": {...}, "env": {...}, "n_triangles",
+    "n_spheres"}`` with numpy arrays, the inverse of :func:`scene_from_numpy`."""
+    host = lambda obj, fields: {
+        f: getattr(obj, f).detach().cpu().numpy() for f in fields
+    }
+    return {
+        "triangles": host(scene.triangles, TRIANGLE_FIELDS),
+        "spheres": host(scene.spheres, SPHERE_FIELDS),
+        "env": host(scene.env, ENV_FIELDS),
+        "n_triangles": scene.n_triangles,
+        "n_spheres": scene.n_spheres,
+    }

@@ -1,0 +1,177 @@
+"""Command-line entry point: the JAX package's CLI, ported.
+
+Same flags, spellings and defaults as ``raytracingc_tpu/cli.py``, plus
+``--device {cuda,cpu}`` (default ``cuda``; a missing card raises, nothing
+falls back to the CPU). ``--backend``: ``auto`` runs the CUDA kernel on a
+card and the plain search on the CPU, ``xla`` the plain search on either
+device, ``pallas`` the CUDA kernel (raises on the CPU).
+
+Flags of features not ported yet raise ``SystemExit`` naming the ROADMAP
+item that will port them; none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="raytracingc-tpu-torch",
+        description="Path tracer on PyTorch and CUDA "
+        "(same capabilities as RayTracingC).",
+    )
+    p.add_argument("-i", "--input", default=None, metavar="path/to/file.obj",
+                   help=".obj scene; omit for default mode (triangles.txt + sphere)")
+    p.add_argument("-o", "--output", default="out.bmp", help="output image (.bmp/.png)")
+    p.add_argument("-p", "--pos", nargs=3, type=float, default=[-4.75, -1.5, -4.75],
+                   metavar=("X", "Y", "Z"), help="camera position")
+    p.add_argument("-t", "--track", nargs=3, type=float, default=[0.9, -1.2, 1.0],
+                   metavar=("X", "Y", "Z"), help="look-at point")
+    p.add_argument("-f", "--fov", type=float, default=1.0,
+                   help="focal-length scalar (bigger = narrower FOV)")
+    p.add_argument("-s", "--size", nargs=2, type=int, default=[128, 128],
+                   metavar=("W", "H"), help="image size")
+    p.add_argument("-b", "--max-bounce", type=int, default=10, help="max path length")
+    p.add_argument("-gc", "--ground-color", nargs=3, type=float,
+                   default=[0.66, 0.66, 0.66], metavar=("R", "G", "B"))
+    p.add_argument("-sch", "--sky-color-horizon", nargs=3, type=float,
+                   default=[1.0, 1.0, 1.0], metavar=("R", "G", "B"))
+    p.add_argument("-scz", "--sky-color-zenith", nargs=3, type=float,
+                   default=[0.263, 0.969, 0.871], metavar=("R", "G", "B"))
+    p.add_argument("--sun", nargs=5, type=float,
+                   default=[-30.0, -85.0, 100.0, 22.0, 0.75],
+                   metavar=("X", "Y", "Z", "FOCUS", "INTENSITY"))
+    # Extensions over the C CLI:
+    p.add_argument("--spp", type=int, default=4000,
+                   help="samples per pixel (the reference hard-codes 4000)")
+    p.add_argument("--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--triangles", default="triangles.txt",
+                   help="triangles.txt path for default mode")
+    p.add_argument("--backend", choices=["auto", "xla", "pallas"], default="auto",
+                   help="triangle search: auto (CUDA kernel on a card, plain "
+                   "version on the CPU), xla (plain version), pallas (CUDA kernel)")
+    p.add_argument("--tessellate", type=int, default=0, metavar="LEVELS",
+                   help="midpoint-subdivide the scene 4^LEVELS-fold before "
+                   "rendering (same image, more triangles)")
+    p.add_argument("--shard", choices=["none", "pixels", "samples"], default="none",
+                   help="multi-device sharding strategy (not ported yet)")
+    p.add_argument("--scene-sharding", choices=["replicated", "blocks"],
+                   default="replicated", help="with --shard (not ported yet)")
+    p.add_argument("--pixel-chunk", type=int, default=None,
+                   help="pixels traced per step (memory bound)")
+    p.add_argument("--profile", action="store_true", help="print timing breakdown")
+    p.add_argument("--debug-bounces", action="store_true",
+                   help="bounce-count heatmap (not ported yet)")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="capture a device profile trace (not ported yet)")
+    p.add_argument("--checkpoint", metavar="FILE.npz", default=None,
+                   help="progressive checkpointed render (not ported yet)")
+    p.add_argument("--batch-spp", type=int, default=64,
+                   help="samples per checkpoint batch (with --checkpoint)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host: host:port of process 0 (not ported yet)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    # The port's own flag:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to render; 'cuda' with no card raises")
+    return p
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    """Raise ``SystemExit`` for any flag whose feature is not ported yet."""
+    unported = [
+        (args.shard != "none", "--shard", "ROADMAP Queue 1 item 10 (parallel)"),
+        (args.scene_sharding != "replicated", "--scene-sharding blocks",
+         "ROADMAP Queue 1 item 10 (parallel)"),
+        (args.checkpoint is not None, "--checkpoint",
+         "ROADMAP Queue 1 item 9 (progressive rendering)"),
+        (args.batch_spp != 64, "--batch-spp",
+         "ROADMAP Queue 1 item 9 (progressive rendering)"),
+        (args.debug_bounces, "--debug-bounces", "ROADMAP Queue 1 item 5 (CLI)"),
+        (args.trace is not None, "--trace", "ROADMAP Queue 1 item 9 (profiling)"),
+        (args.coordinator is not None or args.num_processes is not None
+         or args.process_id is not None,
+         "--coordinator/--num-processes/--process-id",
+         "ROADMAP Queue 1 item 10 (parallel)"),
+    ]
+    for given, flag, item in unported:
+        if given:
+            raise SystemExit(f"{flag}: not ported to raytracingc_tpu_torch yet ({item})")
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.render.image import tonemap_to_bytes, write_image
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.builder import (
+        scene_from_obj,
+        scene_from_triangles_txt,
+        tessellate,
+    )
+    from raytracingc_tpu_torch.scene.types import EnvParams
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
+    if args.device == "cpu" and args.backend == "pallas":
+        raise SystemExit("--backend pallas runs the CUDA kernel: it needs --device cuda")
+    device = torch.device(args.device)
+
+    t0 = time.time()
+    env = EnvParams.from_values(
+        args.sun[:3], args.sky_color_horizon, args.sky_color_zenith,
+        args.ground_color, args.sun[3], args.sun[4],
+    )
+    if args.input is None:
+        print(f"Starting raytracingc-tpu-torch in default mode ({args.triangles})")
+        scene = scene_from_triangles_txt(args.triangles, env=env)
+    else:
+        print(f"Starting raytracingc-tpu-torch in OBJ mode ({args.input})")
+        scene = scene_from_obj(args.input, env=env)
+    if args.tessellate > 0:
+        tris, n_live = tessellate(
+            scene.triangles, scene.n_triangles, levels=args.tessellate
+        )
+        scene = dataclasses.replace(scene, triangles=tris, n_triangles=n_live)
+    scene = scene.to(device)
+    t_load = time.time() - t0
+    print(f"Scene: {scene.n_triangles} triangles, {scene.n_spheres} spheres "
+          f"(loaded in {t_load:.2f}s)")
+
+    cam = Camera.look_at(origin=args.pos, target=args.track, fov=args.fov,
+                         device=device)
+    width, height = args.size
+
+    t1 = time.time()
+    linear, count = render(
+        scene, cam, width, height, spp=args.spp, max_bounce=args.max_bounce,
+        seed=args.seed, backend=args.backend, pixel_chunk=args.pixel_chunk,
+    )
+    linear = linear.cpu().numpy()  # waits for the device
+    t_render = time.time() - t1
+    if not np.isfinite(linear).all():
+        raise RuntimeError("the render produced non-finite radiance")
+
+    write_image(args.output, tonemap_to_bytes(linear))
+    rays = float(count)
+    print(f"Rendered {width}x{height} @ {args.spp} spp, {args.max_bounce} bounces "
+          f"in {t_render:.2f}s — {rays:.3g} rays traced "
+          f"({rays / max(t_render, 1e-9):.3g} rays/s) → {args.output}")
+    if args.profile:
+        print(f"[profile] load={t_load:.3f}s render={t_render:.3f}s "
+              f"rays={count} device={device}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The library goes into
+``build/raytracingc_tpu_torch/`` beside the package (gitignored) under a name
+that carries a hash of the sources and flags, so an edited source rebuilds.
+It is written under a temporary name and ``os.replace``-d into place, so two
+processes never load a half-written library.
+
+Nothing here runs on import: the library is built on the first kernel launch
+on a CUDA device (or by :func:`load_library`), never on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "raytracingc_tpu_torch"
+
+# --fmad=false keeps every multiply and add rounded on its own, like PyTorch's
+# eager elementwise ops, so a kernel equals its plain version bit for bit.
+# Division stays IEEE (no --use_fast_math) and denormals are kept (no ftz).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "--fmad=false", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_VOID_P = ctypes.c_void_p
+_INT = ctypes.c_int
+
+# C signature of each exported function: (argtypes, restype).
+_SIGNATURES = {
+    "rtc_search_brute": ([_VOID_P] * 4 + [_INT, _INT] + [_VOID_P] * 3, _INT),
+    "rtc_error_string": ([_INT], ctypes.c_char_p),
+}
+
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
+    return srcs
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librtc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the hashed library already exists."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    if code != 0:
+        msg = load_library().rtc_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,71 @@
+"""Top-level rendering entry point.
+
+Counterpart of ``raytracingc_tpu/render/renderer.py::render``: primary rays
+for every pixel, padded to a multiple of ``pixel_chunk`` with dead rays, and
+traced chunk by chunk through the production integrator so that device
+memory stays bounded at any resolution.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracingc_tpu_torch.camera import Camera, primary_rays
+from raytracingc_tpu_torch.render.integrator import trace_accumulate
+from raytracingc_tpu_torch.scene.types import Scene
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def default_pixel_chunk(n_pix: int) -> int:
+    """Pixels per chunk: the image rounded up to 1024, at most 65,536 (the
+    JAX package's measured value, kept as the starting point)."""
+    return int(min(max(_round_up(n_pix, 1024), 1024), 65536))
+
+
+def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
+           max_bounce: int, seed: int = 0, backend: str = "auto",
+           pixel_chunk: int | None = None, sample_offset: int = 0,
+           device=None):
+    """Render linear radiance: ``(image [H, W, 3] float32, rays_traced)``.
+
+    ``device`` defaults to the scene's; the scene and camera are moved there.
+    ``rays_traced`` is an exact Python integer. A lane's radiance does not
+    depend on ``pixel_chunk``.
+    """
+    device = torch.device(device) if device is not None else scene.device
+    scene, camera = scene.to(device), camera.to(device)
+    n_pix = width * height
+    if pixel_chunk is None:
+        pixel_chunk = default_pixel_chunk(n_pix)
+    if pixel_chunk < 1:
+        raise ValueError(f"pixel_chunk must be >= 1, got {pixel_chunk}")
+    origins, dirs = primary_rays(camera, width, height)
+    ray_ids = torch.arange(n_pix, dtype=torch.int64, device=device)
+
+    padded = _round_up(n_pix, pixel_chunk)
+    active = torch.arange(padded, device=device) < n_pix
+    if padded != n_pix:
+        pad = padded - n_pix
+        origins = torch.cat([origins, origins.new_zeros((pad, 3))])
+        # Padding rays get a valid unit direction (+z) so the math stays
+        # finite; the active mask keeps them dead (no radiance, no count).
+        pad_dirs = dirs.new_zeros((pad, 3))
+        pad_dirs[:, 2] = 1.0
+        dirs = torch.cat([dirs, pad_dirs])
+        ray_ids = torch.cat([ray_ids, ray_ids.new_zeros(pad)])
+
+    radiance, count = [], 0
+    for lo in range(0, padded, pixel_chunk):
+        hi = lo + pixel_chunk
+        rad, cnt = trace_accumulate(
+            origins[lo:hi], dirs[lo:hi], scene, ray_ids[lo:hi], seed=seed,
+            spp=spp, max_bounce=max_bounce, backend=backend,
+            sample_offset=sample_offset, active=active[lo:hi],
+        )
+        radiance.append(rad)
+        count += cnt
+    image = torch.cat(radiance)[:n_pix].reshape(height, width, 3)
+    return image, count

@@ -1,0 +1,185 @@
+"""Scene data model: plain dataclasses of float32 tensors.
+
+Counterpart of ``raytracingc_tpu/scene/types.py``, with the same fields and
+layouts (structure of arrays, triangles ``[T, 3]``, padded counts) so that a
+scene converted from the JAX package through numpy compares like with like.
+Padding triangles are all-zero (a zero normal fails the backface test) and
+padding spheres have radius 0 (never hit), exactly as there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# The reference's intersection epsilon and miss sentinel.
+EPSILON = 1e-3
+MISS_DST = 999999.0
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _to(obj, device):
+    """Copy every tensor field of a dataclass to ``device``."""
+    return dataclasses.replace(
+        obj,
+        **{
+            f.name: getattr(obj, f.name).to(device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)
+        },
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Triangles:
+    """Triangle soup: vertices ``a/b/c [T, 3]``, stored face ``normal [T, 3]``
+    (the backface cull uses it), ``albedo [T, 3]``, ``emission [T]``,
+    ``smoothness [T]``."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    normal: torch.Tensor
+    albedo: torch.Tensor
+    emission: torch.Tensor
+    smoothness: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.a.shape[0]
+
+    @classmethod
+    def from_numpy(cls, verts, normals, albedo, emission, smoothness,
+                   device="cpu") -> "Triangles":
+        """``verts [T, 3, 3]`` (A, B, C) plus per-triangle attributes."""
+        verts = np.asarray(verts, np.float32)
+        return cls(
+            a=_f32(verts[:, 0], device),
+            b=_f32(verts[:, 1], device),
+            c=_f32(verts[:, 2], device),
+            normal=_f32(normals, device),
+            albedo=_f32(albedo, device),
+            emission=_f32(emission, device),
+            smoothness=_f32(smoothness, device),
+        )
+
+    def to(self, device) -> "Triangles":
+        return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Spheres:
+    """Spheres: ``center [S, 3]``, ``radius [S]`` (<= 0 is padding, never
+    hit), ``albedo [S, 3]``, ``emission [S]``, ``smoothness [S]``."""
+
+    center: torch.Tensor
+    radius: torch.Tensor
+    albedo: torch.Tensor
+    emission: torch.Tensor
+    smoothness: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.center.shape[0]
+
+    @classmethod
+    def zeros(cls, n: int, device="cpu") -> "Spheres":
+        z3 = torch.zeros((n, 3), dtype=torch.float32, device=device)
+        z1 = torch.zeros((n,), dtype=torch.float32, device=device)
+        return cls(center=z3, radius=z1, albedo=z3, emission=z1, smoothness=z1)
+
+    def to(self, device) -> "Spheres":
+        return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvParams:
+    """Procedural sky/sun. The world is y-DOWN: the sky is at negative y."""
+
+    sun_direction: torch.Tensor  # [3], normalized
+    sky_horizon: torch.Tensor  # [3]
+    sky_zenith: torch.Tensor  # [3]
+    ground: torch.Tensor  # [3]
+    sun_focus: torch.Tensor  # scalar
+    sun_intensity: torch.Tensor  # scalar
+
+    @classmethod
+    def from_values(cls, sun_direction, sky_horizon, sky_zenith, ground,
+                    sun_focus, sun_intensity, device="cpu") -> "EnvParams":
+        """Build from plain numbers; ``sun_direction`` is normalized here."""
+        sun = np.asarray(sun_direction, np.float32)
+        sun = sun / np.linalg.norm(sun)
+        return cls(
+            sun_direction=_f32(sun, device),
+            sky_horizon=_f32(sky_horizon, device),
+            sky_zenith=_f32(sky_zenith, device),
+            ground=_f32(ground, device),
+            sun_focus=_f32(sun_focus, device),
+            sun_intensity=_f32(sun_intensity, device),
+        )
+
+    @classmethod
+    def default(cls, device="cpu") -> "EnvParams":
+        return cls.from_values(
+            [-30.0, -85.0, 100.0], [1.0, 1.0, 1.0], [0.263, 0.969, 0.871],
+            [0.66, 0.66, 0.66], 22.0, 0.75, device=device,
+        )
+
+    def to(self, device) -> "EnvParams":
+        return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """Geometry and environment. ``n_triangles``/``n_spheres`` are the live
+    (unpadded) counts.
+
+    ``accel`` and ``resolve_perm`` mirror the JAX scene's fields and stay
+    ``None``: the brute-force search needs no accel, and the permuted
+    resolve applies only far past the brute kernel's range.
+    """
+
+    triangles: Triangles
+    spheres: Spheres
+    env: EnvParams
+    n_triangles: int
+    n_spheres: int
+    accel: None = None
+    resolve_perm: None = None
+
+    def __post_init__(self):
+        # The builders pad to >= 128 triangle rows and >= 8 sphere rows; the
+        # resolve gathers row 0 of each table for lanes that did not select it.
+        if self.triangles.count < 1 or self.spheres.count < 1:
+            raise ValueError("a Scene needs >= 1 triangle row and >= 1 sphere row "
+                             "(padding rows count)")
+        if not 0 <= self.n_triangles <= self.triangles.count:
+            raise ValueError(
+                f"n_triangles={self.n_triangles} outside [0, "
+                f"{self.triangles.count}]"
+            )
+        if not 0 <= self.n_spheres <= self.spheres.count:
+            raise ValueError(
+                f"n_spheres={self.n_spheres} outside [0, {self.spheres.count}]"
+            )
+        if self.accel is not None or self.resolve_perm is not None:
+            raise NotImplementedError(
+                "accel / resolve_perm: not ported yet (ROADMAP Queue 1 item 6)"
+            )
+
+    @property
+    def device(self) -> torch.device:
+        return self.triangles.a.device
+
+    def to(self, device) -> "Scene":
+        return dataclasses.replace(
+            self,
+            triangles=self.triangles.to(device),
+            spheres=self.spheres.to(device),
+            env=self.env.to(device),
+        )

@@ -1,0 +1,129 @@
+"""Port parity: the CLI, its refusals, and the port's independence from JAX."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from raytracingc_tpu.cli import build_parser as j_build_parser
+from raytracingc_tpu.cli import main as j_main
+from raytracingc_tpu_torch.cli import build_parser, main
+from raytracingc_tpu_torch.render.image import read_bmp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BOX_SCENE = os.path.join(REPO, "examples", "box_scene.txt")
+SMALL = ["--triangles", BOX_SCENE, "-s", "16", "16", "--spp", "4", "-b", "3"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """As in test_torch_render.py: parity renders run torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _options(parser):
+    return {
+        a.dest: (tuple(a.option_strings), a.default, a.nargs, a.choices, a.type)
+        for a in parser._actions if a.dest != "help"
+    }
+
+
+def test_parser_matches_jax():
+    port, ref = _options(build_parser()), _options(j_build_parser())
+    assert port.pop("device") == (("--device",), "cuda", None, ["cuda", "cpu"], None)
+    assert port == ref
+
+
+def test_cpu_render_matches_jax_cli(tmp_path, capsys):
+    out, ref = str(tmp_path / "port.bmp"), str(tmp_path / "jax.bmp")
+    assert j_main(SMALL + ["-o", ref]) == 0
+    assert main(SMALL + ["--device", "cpu", "-o", out, "--profile"]) == 0
+    log = capsys.readouterr().out
+    assert log.count("rays traced") == 2 and "rays=" in log
+    got, want = read_bmp(out), read_bmp(ref)
+    assert got.shape == want.shape == (16, 16, 3)
+    assert abs(got.mean() / 255.0 - want.mean() / 255.0) <= 0.01
+
+
+def test_cpu_backends_and_tessellate(tmp_path):
+    a, b = str(tmp_path / "a.bmp"), str(tmp_path / "b.bmp")
+    assert main(SMALL + ["--device", "cpu", "--backend", "xla", "-o", a]) == 0
+    # 640 triangles tile the same surfaces: the same image up to float noise.
+    assert main(SMALL + ["--device", "cpu", "--tessellate", "3", "-o", b]) == 0
+    assert abs(read_bmp(a).mean() - read_bmp(b).mean()) <= 0.01 * 255
+    with pytest.raises(SystemExit, match="needs --device cuda"):
+        main(SMALL + ["--device", "cpu", "--backend", "pallas", "-o", a])
+
+
+def test_cuda_without_card_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "never.bmp"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(SMALL + ["-o", str(out)])  # --device defaults to cuda
+    assert not out.exists()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--shard", "pixels"],
+        ["--scene-sharding", "blocks"],
+        ["--checkpoint", "x.npz"],
+        ["--batch-spp", "16"],
+        ["--debug-bounces"],
+        ["--trace", "tracedir"],
+        ["--coordinator", "localhost:1234"],
+        ["--num-processes", "2"],
+        ["--process-id", "0"],
+    ],
+)
+def test_unported_flags_raise(flags, tmp_path):
+    out = tmp_path / "never.bmp"
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        main(SMALL + ["--device", "cpu", "-o", str(out)] + flags)
+    assert not out.exists()
+
+
+@pytest.mark.parametrize(
+    "env,exc",
+    [
+        ({"RTC_KERNEL": "bitmask"}, ValueError),
+        ({"RTC_KERNEL": "packet"}, NotImplementedError),
+        ({"RTC_KERNEL": "mxu"}, NotImplementedError),
+        ({"RTC_BRUTE_MAX": "lots"}, ValueError),
+        ({"RTC_BRUTE_MAX": "-1"}, ValueError),
+    ],
+)
+def test_bad_knobs_raise(env, exc, tmp_path, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(exc):
+        main(SMALL + ["--device", "cpu", "-o", str(tmp_path / "x.bmp")])
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import pkgutil, sys\n"
+        "import raytracingc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(raytracingc_tpu_torch.__path__,\n"
+        "                               'raytracingc_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "import raytracingc_tpu_torch.cli\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k in ('jax', 'raytracingc_tpu')\n"
+        "             or k.startswith(('jax.', 'raytracingc_tpu.')))\n"
+        "assert not bad, bad\n"
+        "from raytracingc_tpu_torch.ops import _build\n"
+        "assert _build._lib is None  # importing builds nothing\n"
+        "print('ok', len(list(pkgutil.walk_packages(raytracingc_tpu_torch.__path__))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
