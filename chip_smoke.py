@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from this checkout's sources, holds it
-against its plain PyTorch version on the card, drives the renderer's main
-path through the CLI (the user's entry point), and compares a small render on
-the card with the same render on the CPU. Each phase prints one line; any
-failure raises and the script exits non-zero without printing a result.
+Builds the hand-written CUDA kernels from this checkout's sources (one nvcc
+per source, in parallel), holds each against its plain PyTorch version on
+the card bit for bit, drives the renderer's main path through the CLI (the
+user's entry point) at every kernel's scene size, and compares a small
+render on the card with the same render on the CPU. Each phase prints one
+line per step; any failure raises and the script exits non-zero without
+printing a result.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object describing each kernel, and the result object
@@ -35,19 +37,57 @@ PHASE3_DEAD = 0.3
 TIMED_N_LIVE = (10, 640)  # box_scene, and box_scene tessellated 64-fold
 TIMED_RAYS = 65536
 
+# Phase 3b: the packet kernels against their plain versions, bit for bit,
+# and their live-lane winners against the brute scan over all live
+# triangles. (label, scene, live triangles, knobs, expected kernel); the
+# scene is a seeded soup or box_scene tessellated to that count.
+PACKET_CASES = (
+    ("K2 soup 1,600 (1 word)", "soup", 1600, {}, "bitmask"),
+    ("K2 soup 10,240 (3 words)", "soup", 10240, {}, "bitmask"),
+    ("K2 box 10,240 (3 words)", "box", 10240, {}, "bitmask"),
+    ("K2 soup 31,744 (8 words)", "soup", 31744, {}, "bitmask"),
+    ("K3 soup 40,960 resident", "soup", 40960, {}, "packed"),
+    ("K3 box 40,960 resident", "box", 40960, {}, "packed"),
+    ("K3 box 40,960 resident, granule 4", "box", 40960,
+     {"RTC_STREAM_GRANULE": "4"}, "packed"),
+    ("K3 soup 163,840 streamed", "soup", 163840, {}, "packed"),
+    ("K3 box 163,840 streamed", "box", 163840, {}, "packed"),
+    ("K3 box 163,840 streamed, tile 12,000", "box", 163840,
+     {"RTC_STREAM_TILE": "12000"}, "packed"),
+)
+# Timed at R = TIMED_RAYS (kernel, plain): the main path's shapes.
+TIMED_PACKET = {
+    "K2 box 10,240 (3 words)": "search_bitmask",
+    "K3 box 40,960 resident": "search_packed",
+    "K3 box 163,840 streamed": "search_packed",
+}
+
 # Phase 4: the main path through the CLI, in default mode on box_scene.
 # (a) is the CLI's own default workload (128x128, 10 bounces) with spp cut
 # from the default 4000 to 256 to bound the run time; (b) and (c) are the
 # tracked 1920x1080, 8 spp, 8 bounces configuration, (c) tessellated to 640
-# live triangles.
+# live triangles; (d)-(f) tessellate box_scene past the brute kernel's
+# range, one run per packet route, at 1920x1080 and 8 bounces with spp cut
+# from 8 to 2 to bound the run time. (label, flags, image shape, kernel).
 MAIN_RUNS = (
     ("a: 128x128, 10 bounces, 256 spp (CLI defaults, spp cut from 4000)",
-     ["--spp", "256"], (128, 128)),
+     ["--spp", "256"], (128, 128), "search_brute"),
     ("b: 1920x1080, 8 spp, 8 bounces",
-     ["-s", "1920", "1080", "--spp", "8", "-b", "8"], (1080, 1920)),
+     ["-s", "1920", "1080", "--spp", "8", "-b", "8"], (1080, 1920),
+     "search_brute"),
     ("c: as b, --tessellate 3 (640 triangles)",
      ["-s", "1920", "1080", "--spp", "8", "-b", "8", "--tessellate", "3"],
-     (1080, 1920)),
+     (1080, 1920), "search_brute"),
+    ("d: 1920x1080, 8 bounces, 2 spp (cut from 8), --tessellate 5 "
+     "(10,240 triangles, bitmask)",
+     ["-s", "1920", "1080", "--spp", "2", "-b", "8", "--tessellate", "5"],
+     (1080, 1920), "search_bitmask"),
+    ("e: as d, --tessellate 6 (40,960 triangles, packed resident)",
+     ["-s", "1920", "1080", "--spp", "2", "-b", "8", "--tessellate", "6"],
+     (1080, 1920), "search_packed"),
+    ("f: as d, --tessellate 7 (163,840 triangles, packed streamed)",
+     ["-s", "1920", "1080", "--spp", "2", "-b", "8", "--tessellate", "7"],
+     (1080, 1920), "search_packed"),
 )
 # Plausible band for the tonemapped image's mean byte value: a lit room seen
 # from inside (no sky in view), neither black nor blown out.
@@ -97,6 +137,150 @@ def random_soup(rng, n_live: int, n_rays: int):
     return tri, o, d, alive
 
 
+def packet_rays(rng, n_rays: int, lo, hi):
+    """Rays in packets of 8 that share an origin region and a direction up
+    to a small jitter, as adjacent pixels' rays do; 30% of lanes dead."""
+    import numpy as np
+
+    n_pk = -(-n_rays // 8)
+    o = np.repeat(rng.uniform(lo, hi, (n_pk, 3)), 8, axis=0)[:n_rays]
+    o = (o + rng.normal(size=(n_rays, 3)) * 0.02).astype(np.float32)
+    d = np.repeat(rng.normal(size=(n_pk, 3)), 8, axis=0)[:n_rays]
+    d = d + rng.normal(size=(n_rays, 3)) * 0.02
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    alive = rng.uniform(size=n_rays) >= PHASE3_DEAD
+    return o, d, alive
+
+
+def packet_scene(rng, kind: str, n_live: int):
+    """``(Triangles, n_live, ray origin box)``: a soup of triangles (every
+    7th duplicating an earlier one, so that equal distances occur) in a
+    12-unit cube, or box_scene tessellated to ``n_live`` triangles."""
+    import numpy as np
+
+    from raytracingc_tpu_torch.scene.builder import (
+        scene_from_triangles_txt,
+        tessellate,
+        triangles_from_arrays,
+    )
+
+    if kind == "box":
+        scene = scene_from_triangles_txt(BOX_SCENE)
+        levels = {10 * 4**k: k for k in range(1, 9)}[n_live]
+        tris, n = tessellate(scene.triangles, scene.n_triangles, levels=levels)
+        return tris, n, ((-5.0, -5.0, -5.0), (5.0, 1.5, 5.0))
+    # Edges shrink as the count grows, so that every soup has about the
+    # same surface area and most rays hit.
+    edge = 0.15 * (163840 / n_live) ** 0.5
+    a = rng.uniform(-6, 6, (n_live, 3))
+    b = a + rng.normal(size=(n_live, 3)) * edge
+    c = a + rng.normal(size=(n_live, 3)) * edge
+    verts = np.stack([a, b, c], axis=1).astype(np.float32)
+    dup = np.arange(7, n_live, 7)
+    verts[dup] = verts[dup // 2]
+    nrm = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
+    nrm[::2] *= -1.0  # both backface-cull outcomes
+    tris, n = triangles_from_arrays(
+        verts, nrm.astype(np.float32), np.full((n_live, 3), 0.5, np.float32),
+        np.zeros(n_live, np.float32), np.zeros(n_live, np.float32))
+    return tris, n, ((-8.0, -8.0, -8.0), (8.0, 8.0, 8.0))
+
+
+@contextlib.contextmanager
+def knobs_set(env: dict):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
+    """Phase 3b. Returns ``({label: (kernel ms, plain ms)}, {kernel name:
+    max |dst - plain dst|})``; raises on any disagreement."""
+    import torch
+
+    from raytracingc_tpu_torch.ops import culling, search
+    from raytracingc_tpu_torch.ops.accel import BLOCK, build_accel
+    from raytracingc_tpu_torch.ops.search_bitmask import (
+        search_bitmask,
+        search_bitmask_reference,
+    )
+    from raytracingc_tpu_torch.ops.search_brute import (
+        pack_triangles,
+        search_brute_reference,
+    )
+    from raytracingc_tpu_torch.ops.search_packed import (
+        search_packed,
+        search_packed_reference,
+    )
+
+    timings, max_err = {}, {"search_bitmask": 0.0, "search_packed": 0.0}
+    for label, kind, n_live, env, expect in cases:
+        t = time.time()
+        tris, n, (lo, hi) = packet_scene(rng, kind, n_live)
+        tris = tris.to(dev)
+        accel = build_accel(tris, n)
+        with knobs_set(env):
+            way = search.route(n, accel.n_blocks, search.Knobs.read())
+        if way.kernel != expect:
+            raise AssertionError(f"{label}: routed to {way}, expected {expect}")
+        if way.kernel == "bitmask":
+            kern, plain, name = search_bitmask, search_bitmask_reference, "search_bitmask"
+            plane, oi = accel.packed_plane, accel.orig_idx
+        else:
+            kern, plain, name = search_packed, search_packed_reference, "search_packed"
+            plane, oi = culling.stream_tile_pad(accel.packed_plane,
+                                                accel.orig_idx, way.tile)
+        brute_tri = pack_triangles(tris, n)
+        notes = []
+        for n_rays in rays:
+            o, d, alive = (torch.from_numpy(x).to(dev)
+                           for x in packet_rays(rng, n_rays, lo, hi))
+            o_p, d_p, a_p = culling.packets(o, d, alive)
+            if way.kernel == "bitmask":
+                words = culling.packet_block_masks(o_p, d_p, a_p, accel)
+                args = (o, d, words, plane, oi)
+            else:
+                words = culling.packet_tile_words_multi(
+                    o_p, d_p, a_p, accel, way.n_tiles, way.tile // BLOCK,
+                    way.granule)
+                args = (o, d, words, plane, oi, way.tile, way.granule)
+            dk, ik = kern(*args)
+            dr, ir = plain(*args)
+            db, ib = search_brute_reference(o, d, brute_tri, n, alive)
+            torch.cuda.synchronize()
+            where = f"{label} R={n_rays}"
+            if not torch.equal(ik, ir):
+                raise AssertionError(f"{where}: idx differs from the plain "
+                                     f"version on {int((ik != ir).sum())} rays")
+            if not torch.equal(dk.view(torch.int32), dr.view(torch.int32)):
+                raise AssertionError(f"{where}: dst bits differ from the plain version")
+            if not (torch.equal(ik[alive], ib[alive]) and torch.equal(
+                    dk[alive].view(torch.int32), db[alive].view(torch.int32))):
+                raise AssertionError(f"{where}: live lanes differ from the brute "
+                                     f"scan on {int((ik != ib)[alive].sum())} rays")
+            hits = int((ik[alive] >= 0).sum())
+            if hits < n_rays // 100:
+                raise AssertionError(f"{where}: only {hits} live rays hit")
+            max_err[name] = max(max_err[name], float((dk - dr).abs().max()))
+            notes.append(f"R={n_rays}: {hits} live hits, "
+                         f"{int((words != 0).sum())} nonzero words")
+            if n_rays == TIMED_RAYS and label in TIMED_PACKET:
+                timings[label] = (cuda_ms(lambda: kern(*args), 20),
+                                  cuda_ms(lambda: plain(*args), 3))
+        phase("kernel", t, f"{label}: {name} == plain bitwise, live lanes == "
+              f"brute scan; {way.kernel} tile={way.tile} n_tiles={way.n_tiles} "
+              f"granule={way.granule}; " + "; ".join(notes))
+    return timings, max_err
+
+
 def cuda_ms(fn, iters: int) -> float:
     import torch
 
@@ -124,10 +308,12 @@ def main() -> int:
     from raytracingc_tpu_torch.camera import Camera
     from raytracingc_tpu_torch.cli import main as cli_main
     from raytracingc_tpu_torch.ops import _build
+    from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
     from raytracingc_tpu_torch.ops.search_brute import (
         search_brute,
         search_brute_reference,
     )
+    from raytracingc_tpu_torch.ops.search_packed import search_packed
     from raytracingc_tpu_torch.render.image import read_bmp
     from raytracingc_tpu_torch.render.renderer import render
     from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
@@ -194,21 +380,33 @@ def main() -> int:
           f"{n_cases} cases (n_live {PHASE3_N_LIVE} x R {PHASE3_RAYS}, "
           f"{PHASE3_DEAD:.0%} dead); at R={TIMED_RAYS}: {times}")
 
-    # 4. Main path: the CLI in default mode, on the card.
-    search_brute.launches = 0
-    total_launches = 0
+    # 3b. The packet kernels vs plain, and vs the brute scan.
+    t = time.time()
+    packet_times, packet_err = check_packet_kernels(dev, rng)
+    phase("kernel", t, "packet kernels at R=" + str(TIMED_RAYS) + ": " + ", ".join(
+        f"{label}: kernel {k:.4f} ms, plain {p:.4f} ms"
+        for label, (k, p) in packet_times.items()))
+
+    # 4. Main path: the CLI in default mode, on the card. Every kernel's
+    # count is set to 0 here and read after each run.
+    kernels = {"search_brute": search_brute, "search_bitmask": search_bitmask,
+               "search_packed": search_packed}
+    for fn in kernels.values():
+        fn.launches = 0
+    total_launches = dict.fromkeys(kernels, 0)
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (label, extra, shape) in enumerate(MAIN_RUNS):
+        for i, (label, extra, shape, expect) in enumerate(MAIN_RUNS):
             t = time.time()
             out = os.path.join(tmp, f"main_{i}.bmp")
-            before = search_brute.launches
+            before = {k: fn.launches for k, fn in kernels.items()}
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = cli_main(["--device", "cuda", "--triangles", BOX_SCENE,
                                "-o", out, "--profile", *extra])
             log = buf.getvalue()
-            launched = search_brute.launches - before
-            total_launches += launched
+            launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            for k, v in launched.items():
+                total_launches[k] += v
             if rc != 0:
                 raise AssertionError(f"{label}: cli exit code {rc}\n{log}")
             prof = re.search(r"render=([0-9.]+)s rays=(\d+)", log)
@@ -217,8 +415,11 @@ def main() -> int:
             render_s, rays = float(prof.group(1)), int(prof.group(2))
             img = read_bmp(out)
             mean = float(img.mean())
-            if launched < 1:
-                raise AssertionError(f"{label}: search_brute never launched")
+            if launched[expect] < 1:
+                raise AssertionError(f"{label}: {expect} never launched")
+            others = {k: v for k, v in launched.items() if k != expect and v}
+            if others:
+                raise AssertionError(f"{label}: other kernels launched: {others}")
             if img.shape != (*shape, 3):
                 raise AssertionError(f"{label}: image shape {img.shape}")
             if not MEAN_BAND[0] <= mean <= MEAN_BAND[1]:
@@ -227,8 +428,8 @@ def main() -> int:
             if rays <= 0:
                 raise AssertionError(f"{label}: no rays traced")
             phase("main", t, f"{label}: render {render_s:.3f}s, {rays} rays, "
-                  f"{rays / render_s:.4g} rays/s, {launched} kernel launches, "
-                  f"mean byte {mean:.2f}")
+                  f"{rays / render_s:.4g} rays/s, {launched[expect]} {expect} "
+                  f"launches, mean byte {mean:.2f}")
 
     # 5. The port on the card vs the port on the CPU.
     t = time.time()
@@ -258,20 +459,29 @@ def main() -> int:
           f"bounces: rays cuda {n_g} / cpu {n_c}, {close.mean():.4f} of pixels "
           f"within {PIXEL_RTOL:g}, mean |diff| {mean_abs:.3g}")
 
-    # The kernel line's times are those at the main path's largest case
-    # (R = TIMED_RAYS, n_live = max(TIMED_N_LIVE)); the [kernel] line has both.
-    k_ms, p_ms = timings[max(TIMED_N_LIVE)]
+    # The kernel line's times are those at the main path's shapes: R =
+    # TIMED_RAYS with box_scene at 640 (brute), 10,240 (bitmask) and 163,840
+    # (packed, streamed) triangles; the [kernel] lines have the others.
+    src = "raytracingc_tpu_torch/csrc/{}.cu"
+    tpu = "raytracingc_tpu/ops/intersect_pallas.py:{}"
+    rows = [
+        ("search_brute", tpu.format(1278), timings[max(TIMED_N_LIVE)], max_abs),
+        ("search_bitmask", tpu.format(1453),
+         packet_times["K2 box 10,240 (3 words)"], packet_err["search_bitmask"]),
+        ("search_packed", tpu.format(869),
+         packet_times["K3 box 163,840 streamed"], packet_err["search_packed"]),
+    ]
     print(nvidia_smi())
     print(json.dumps({"kernels": [{
-        "name": "search_brute",
+        "name": name,
         "route": "cuda",
-        "source": "raytracingc_tpu_torch/csrc/search_brute.cu",
-        "replaces": "raytracingc_tpu/ops/intersect_pallas.py:1278",
-        "launches": total_launches,
-        "max_abs_err": max_abs,
+        "source": src.format(name),
+        "replaces": replaces,
+        "launches": total_launches[name],
+        "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
-    }]}))
+    } for name, replaces, (k_ms, p_ms), err in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -9,7 +9,9 @@ make both packages compute on the same scene::
     env = {f: np.asarray(getattr(js.env, f)) for f in ENV_FIELDS}
     scene = scene_from_numpy(tri, sph, env, js.n_triangles, js.n_spheres)
 
-:func:`scene_to_numpy` goes the other way, for round-trip checks.
+:func:`accel_from_numpy` carries the JAX scene's ``TriangleAccel`` across
+the same way (``accel_arrays`` shows the fields), and :func:`scene_to_numpy`
+goes the other way, for round-trip checks.
 """
 
 from __future__ import annotations
@@ -21,12 +23,20 @@ import numpy as np
 import torch
 
 from raytracingc_tpu_torch.camera import Camera
+from raytracingc_tpu_torch.ops.accel import TriangleAccel
 from raytracingc_tpu_torch.scene.types import EnvParams, Scene, Spheres, Triangles
 
 TRIANGLE_FIELDS = tuple(f.name for f in dataclasses.fields(Triangles))
 SPHERE_FIELDS = tuple(f.name for f in dataclasses.fields(Spheres))
 ENV_FIELDS = tuple(f.name for f in dataclasses.fields(EnvParams))
 CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
+# The accel's array fields (besides its ``triangles``) and their dtypes;
+# the optional ones are None on a trivial accel.
+ACCEL_FIELDS = {
+    "orig_idx": np.int32, "aabb_lo": np.float32, "aabb_hi": np.float32,
+    "perm_of_orig": np.int32, "packed_plane": np.float32,
+}
+_OPTIONAL_ACCEL_FIELDS = ("perm_of_orig", "packed_plane")
 
 
 def _build(cls, fields: tuple[str, ...], arrays: Mapping[str, np.ndarray], device):
@@ -37,6 +47,37 @@ def _build(cls, fields: tuple[str, ...], arrays: Mapping[str, np.ndarray], devic
         f: torch.from_numpy(np.array(arrays[f], np.float32)).to(device)
         for f in fields
     })
+
+
+def accel_arrays(accel) -> dict:
+    """A JAX-package ``TriangleAccel`` as the numpy dict that
+    :func:`accel_from_numpy` takes (``triangles`` a dict of its fields).
+    Takes anything with the accel's attributes; imports nothing of JAX."""
+    out = {"triangles": {f: np.asarray(getattr(accel.triangles, f))
+                         for f in TRIANGLE_FIELDS}}
+    for f in ACCEL_FIELDS:
+        v = getattr(accel, f)
+        out[f] = None if v is None else np.asarray(v)
+    return out
+
+
+def accel_from_numpy(arrays: Mapping, device="cpu") -> TriangleAccel:
+    """Build a port ``TriangleAccel`` from the JAX accel's fields, as numpy
+    (``mxu_coeffs`` is not carried: the MXU kernel is not ported)."""
+    missing = {"triangles", *ACCEL_FIELDS} - set(arrays)
+    if missing:
+        raise KeyError(f"TriangleAccel: missing fields {sorted(missing)}")
+    fields = {}
+    for f, dtype in ACCEL_FIELDS.items():
+        v = arrays[f]
+        if v is None and f not in _OPTIONAL_ACCEL_FIELDS:
+            raise ValueError(f"TriangleAccel: {f} is None")
+        fields[f] = None if v is None else torch.from_numpy(
+            np.array(v, dtype)).to(device)
+    return TriangleAccel(
+        triangles=_build(Triangles, TRIANGLE_FIELDS, arrays["triangles"], device),
+        **fields,
+    )
 
 
 def scene_from_numpy(triangles: Mapping[str, np.ndarray],

@@ -2,9 +2,10 @@
 
 Same flags, spellings and defaults as ``raytracingc_tpu/cli.py``, plus
 ``--device {cuda,cpu}`` (default ``cuda``; a missing card raises, nothing
-falls back to the CPU). ``--backend``: ``auto`` runs the CUDA kernel on a
-card and the plain search on the CPU, ``xla`` the plain search on either
-device, ``pallas`` the CUDA kernel (raises on the CPU).
+falls back to the CPU). ``--backend``: ``auto`` runs the CUDA kernels on a
+card and their plain versions on the CPU, ``xla`` the accel-free plain scan
+on either device, ``pallas`` the CUDA kernels (raises on the CPU). Scenes
+carry the block-AABB accel, rebuilt after ``--tessellate``.
 
 Flags of features not ported yet raise ``SystemExit`` naming the ROADMAP
 item that will port them; none is silently ignored.
@@ -52,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--triangles", default="triangles.txt",
                    help="triangles.txt path for default mode")
     p.add_argument("--backend", choices=["auto", "xla", "pallas"], default="auto",
-                   help="triangle search: auto (CUDA kernel on a card, plain "
-                   "version on the CPU), xla (plain version), pallas (CUDA kernel)")
+                   help="triangle search: auto (CUDA kernels on a card, plain "
+                   "versions on the CPU), xla (plain scan), pallas (CUDA kernels)")
     p.add_argument("--tessellate", type=int, default=0, metavar="LEVELS",
                    help="midpoint-subdivide the scene 4^LEVELS-fold before "
                    "rendering (same image, more triangles)")
@@ -142,7 +143,9 @@ def main(argv: list[str] | None = None) -> int:
         tris, n_live = tessellate(
             scene.triangles, scene.n_triangles, levels=args.tessellate
         )
-        scene = dataclasses.replace(scene, triangles=tris, n_triangles=n_live)
+        scene = dataclasses.replace(
+            scene, triangles=tris, n_triangles=n_live, accel=None
+        ).with_accel()
     scene = scene.to(device)
     t_load = time.time() - t0
     print(f"Scene: {scene.n_triangles} triangles, {scene.n_spheres} spheres "

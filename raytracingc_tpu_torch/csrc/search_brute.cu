@@ -12,11 +12,12 @@
 //     the lowest index wins (the C scan order);
 //   * dead lanes (alive[r] == 0) and misses write (MISS_DST, -1).
 //
-// The arithmetic is that of the TPU kernel, op for op and in the same order.
-// Built with --fmad=false, IEEE division and no flush-to-zero, every multiply
-// and add rounds on its own, as PyTorch's eager elementwise ops do, so dst and
-// idx equal the plain version (ops/search_brute.py::search_brute_reference)
-// bit for bit on the card.
+// The arithmetic is that of the TPU kernel, op for op and in the same order
+// (rtc::mt_distance in mt.cuh, shared with the packet kernels). Built with
+// --fmad=false, IEEE division and no flush-to-zero, every multiply and add
+// rounds on its own, as PyTorch's eager elementwise ops do, so dst and idx
+// equal the plain version (ops/search_brute.py::search_brute_reference) bit
+// for bit on the card.
 //
 // What bounds it on an H100: about 60 floating-point operations per (ray,
 // triangle) pair and 24 + 1 bytes in, 8 bytes out per ray. At 640 triangles
@@ -37,10 +38,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mt.cuh"
+
 namespace {
 
-constexpr float kEpsilon = 1e-3f;      // scene/types.py EPSILON
-constexpr float kMissDst = 999999.0f;  // scene/types.py MISS_DST
+using rtc::kMissDst;
 constexpr int kThreads = 256;          // rays per block
 constexpr int kTile = 256;             // triangle rows staged per pass
 constexpr int kRow = 12;               // A, AB, AC, N
@@ -59,11 +61,7 @@ search_brute_kernel(const float* __restrict__ o,        // [R, 3]
   const bool in_range = r < n_rays;
   const bool live = in_range && (alive == nullptr || alive[r] != 0);
 
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (in_range) {
-    ox = o[3 * r + 0]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
-    dx = d[3 * r + 0]; dy = d[3 * r + 1]; dz = d[3 * r + 2];
-  }
+  const rtc::Ray ray = rtc::load_ray(o, d, r, in_range);
   float best_d = kMissDst;
   int32_t best_i = -1;
 
@@ -77,31 +75,9 @@ search_brute_kernel(const float* __restrict__ o,        // [R, 3]
       if (live) {
         for (int j = 0; j < n; ++j) {
           const float* t = s_tri + j * kRow;
-          const float ax = t[0], ay = t[1], az = t[2];
-          const float abx = t[3], aby = t[4], abz = t[5];
-          const float acx = t[6], acy = t[7], acz = t[8];
-          const float nx = t[9], ny = t[10], nz = t[11];
-
-          const float dn = dx * nx + dy * ny + dz * nz;  // backface cull
-          const float hx = dy * acz - dz * acy;
-          const float hy = dz * acx - dx * acz;
-          const float hz = dx * acy - dy * acx;
-          const float det = abx * hx + aby * hy + abz * hz;
-          const bool degenerate = fabsf(det) < kEpsilon;
-          const float inv_det = 1.0f / (degenerate ? 1.0f : det);
-          const float sx = ox - ax;
-          const float sy = oy - ay;
-          const float sz = oz - az;
-          const float u = (sx * hx + sy * hy + sz * hz) * inv_det;
-          const float qx = sy * abz - sz * aby;
-          const float qy = sz * abx - sx * abz;
-          const float qz = sx * aby - sy * abx;
-          const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-          float dst = (acx * qx + acy * qy + acz * qz) * inv_det;
-          const bool valid = (dn < 0.0f) && !degenerate && (u >= 0.0f) &&
-                             (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                             (dst >= kEpsilon);
-          dst = valid ? dst : kMissDst;
+          const float dst = rtc::mt_distance(ray, t[0], t[1], t[2], t[3], t[4],
+                                             t[5], t[6], t[7], t[8], t[9],
+                                             t[10], t[11]);
           if (dst < best_d) {  // strict '<': original order = C scan order
             best_d = dst;
             best_i = base + j;

@@ -1,0 +1,109 @@
+// Packed multi-word packet search over triangle tiles, hand-written for
+// Hopper.
+//
+// Replaces raytracingc_tpu/ops/intersect_pallas.py::
+// _search_kernel_streamed_packed_tmajor together with the cross-tile lex-min
+// fold its launcher runs in XLA. The (12, T) plane is cut into n_tiles tiles
+// of blocks_per_tile 128-triangle blocks (one tile for the resident case).
+// Packet p (rays 8p .. 8p + 7) carries n_words culling words per tile
+// (ops/culling.py::packet_tile_words_multi): bit j of word w of tile t
+// covers the tile-local blocks [(w * 31 + j) * granule, ... + granule),
+// clipped to blocks_per_tile, and is set iff some live lane of the packet
+// passes the slab test of that granule's union AABB. Every ray of the packet
+// tests the blocks of its set bits, tiles and blocks in ascending order,
+// with the shared Moller-Trumbore test (mt.cuh), keeping the lexicographic
+// minimum of (dst, original index). A packet with no set bit misses.
+//
+// The TPU kernel writes one result per (tile, program) and folds the tiles
+// afterwards by lex-min, because its grid is sequential and its revisited
+// output blocks were unreliable. Here the loop over tiles runs inside the
+// thread and the running best carries across tiles: a lex-min over a
+// partition is the lex-min over the whole, so the result bits are the same,
+// and it equals the plain version (ops/search_packed.py::
+// search_packed_reference) on the card.
+//
+// What bounds it on an H100: the MT work (~60 FP32 operations per (ray,
+// tested triangle)) and the divergence of the bit walk; the plane (8.5 MB at
+// 163,840 triangles) stays in the 50 MB L2, and the words are 4 bytes per
+// (packet, tile, word). The design is that of search_bitmask.cu: one thread
+// per ray, registers for the ray and its best, the warp walking the union of
+// its 4 packets' bits so that a shared block is read once per warp. Left out
+// as TPU scheduling aids that change no result: the packing of active
+// columns per (program, tile), the descending-popcount sort and the grouped
+// lockstep walk (RTC_COL_GROUP). No shared memory, no tensor cores: the
+// simple first version.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mt.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // rays per block: 32 packets, 8 warps
+
+__global__ void __launch_bounds__(kThreads)
+search_packed_kernel(const float* __restrict__ o,           // [R, 3]
+                     const float* __restrict__ d,           // [R, 3]
+                     const int32_t* __restrict__ words,     // [ceil(R/8), n_tiles, W]
+                     const float* __restrict__ plane,       // [12, n_tiles * tile]
+                     const int32_t* __restrict__ orig_idx,  // [n_tiles * tile]
+                     int n_rays, int n_tiles, int n_words,
+                     int blocks_per_tile, int granule,
+                     float* __restrict__ dst_out,           // [R]
+                     int32_t* __restrict__ idx_out) {       // [R]
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const bool in_range = r < n_rays;
+  const rtc::Ray ray = rtc::load_ray(o, d, r, in_range);
+  const int64_t t_stride =
+      static_cast<int64_t>(n_tiles) * blocks_per_tile * rtc::kBlock;
+  const int32_t* packet_words =
+      words + static_cast<int64_t>(r / rtc::kPacket) * n_tiles * n_words;
+
+  float best_d = rtc::kMissDst;
+  int32_t best_i = rtc::kBigIdx;
+  for (int t = 0; t < n_tiles; ++t) {  // uniform over the grid
+    const int64_t tile_base = static_cast<int64_t>(t) * blocks_per_tile;
+    for (int w = 0; w < n_words; ++w) {
+      const uint32_t m =
+          in_range ? static_cast<uint32_t>(__ldg(packet_words + t * n_words + w))
+                   : 0u;
+      rtc::for_each_bit(m, [&](int j) {
+        const int start = (w * rtc::kBitsPerWord + j) * granule;
+        const int end = min(start + granule, blocks_per_tile);
+        for (int b = start; b < end; ++b) {
+          rtc::mt_block(ray, plane, orig_idx, t_stride, tile_base + b,
+                        best_d, best_i);
+        }
+      });
+    }
+  }
+  if (in_range) {
+    dst_out[r] = best_d;
+    idx_out[r] = best_d < rtc::kMissDst ? best_i : -1;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the search on `stream` and returns cudaGetLastError() as an int
+// (0 = launched).
+int rtc_search_packed(const void* o, const void* d, const void* words,
+                      const void* plane, const void* orig_idx, int n_rays,
+                      int n_tiles, int n_words, int blocks_per_tile,
+                      int granule, void* dst, void* idx, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  search_packed_kernel<<<blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(o), static_cast<const float*>(d),
+      static_cast<const int32_t*>(words), static_cast<const float*>(plane),
+      static_cast<const int32_t*>(orig_idx), n_rays, n_tiles, n_words,
+      blocks_per_tile, granule, static_cast<float*>(dst),
+      static_cast<int32_t*>(idx));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

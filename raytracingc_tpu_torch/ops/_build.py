@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with a
-plain C interface, loaded with ``ctypes``. The library goes into
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes``. The library goes into
 ``build/raytracingc_tpu_torch/`` beside the package (gitignored) under a name
-that carries a hash of the sources and flags, so an edited source rebuilds.
-It is written under a temporary name and ``os.replace``-d into place, so two
-processes never load a half-written library.
+that carries a hash of the sources, the headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds. It is written under a
+temporary name and ``os.replace``-d into place, so two processes never load a
+half-written library.
 
 Nothing here runs on import: the library is built on the first kernel launch
 on a CUDA device (or by :func:`load_library`), never on the CPU.
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -30,7 +33,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "raytracingc_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "--fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _VOID_P = ctypes.c_void_p
@@ -39,11 +42,13 @@ _INT = ctypes.c_int
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
     "rtc_search_brute": ([_VOID_P] * 4 + [_INT, _INT] + [_VOID_P] * 3, _INT),
+    "rtc_search_bitmask": ([_VOID_P] * 5 + [_INT] * 3 + [_VOID_P] * 3, _INT),
+    "rtc_search_packed": ([_VOID_P] * 5 + [_INT] * 5 + [_VOID_P] * 3, _INT),
     "rtc_error_string": ([_INT], ctypes.c_char_p),
 }
 
 _lib: ctypes.CDLL | None = None
-build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
+build_log = ""  # nvcc's output (ptxas register/shared-memory reports) of the last build
 
 
 def _nvcc() -> str:
@@ -67,13 +72,24 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"librtc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands in parallel; ``(cmd, returncode, output)`` each."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    logs = [p.communicate()[0] for _, p in procs]  # waits for each
+    return [(cmd, p.returncode, log) for (cmd, p), log in zip(procs, logs)]
 
 
 def build() -> Path:
@@ -83,16 +99,22 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+        results = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        tmp = Path(tmpdir) / out.name
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                  str(tmp), *map(str, objs)]])
+        build_log = "".join(log for _, _, log in results)
+        for cmd, rc, log in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
     return out
 
 

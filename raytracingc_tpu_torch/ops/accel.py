@@ -1,0 +1,152 @@
+"""Block-AABB acceleration structure: Morton-sorted triangles, 128-blocks.
+
+Counterpart of ``raytracingc_tpu/ops/accel.py``. Live triangles are sorted
+on the host by the 30-bit Morton code of their centroid, so spatially near
+triangles sit in the same aligned block of :data:`BLOCK` triangles; each
+block gets an AABB. The packet kernels slab-test a ray packet against the
+block AABBs (``ops/culling.py``) and run Möller–Trumbore only on the blocks
+that pass.
+
+The kernels carry each slot's ORIGINAL triangle index and break distance
+ties toward the lowest one, so results equal the unsorted brute-force scan
+whatever the permutation. The sort runs in numpy with the JAX package's
+code (``np.argsort(kind="stable")`` on uint32 codes), so both packages give
+the same permutation, bounds and plane bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from raytracingc_tpu_torch.scene.types import Triangles
+
+BLOCK = 128  # triangles per AABB block
+PAD_ORIG_IDX = 2**30  # orig_idx of padding slots: loses every tie
+_AABB_BIG = 3.0e38  # "always hit" sentinel of trivial accels
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangleAccel:
+    """Morton-permuted triangle soup + per-128-block AABBs.
+
+    ``triangles``: the scene's triangles in permuted order (padding at the
+    tail). ``orig_idx [T]`` int32: permuted slot → original index
+    (:data:`PAD_ORIG_IDX` on padding slots). ``aabb_lo/hi [B, 3]``: block
+    bounds; a padding-only block gets an inverted box that no ray hits.
+    ``perm_of_orig [T]`` int32: original index → permuted slot (the resolve's
+    locality-sorted gather). ``packed_plane [12, T]`` f32: rows A, AB, AC, N
+    of the permuted triangles, the packet kernels' triangle input.
+    ``mxu_coeffs`` stays ``None``: it feeds only the MXU kernel, which is not
+    ported (ROADMAP Queue 2 K8). A trivial accel has no ``perm_of_orig`` and
+    no ``packed_plane``.
+    """
+
+    triangles: Triangles
+    orig_idx: torch.Tensor
+    aabb_lo: torch.Tensor
+    aabb_hi: torch.Tensor
+    mxu_coeffs: None = None
+    perm_of_orig: torch.Tensor | None = None
+    packed_plane: torch.Tensor | None = None
+
+    @property
+    def n_blocks(self) -> int:
+        return self.aabb_lo.shape[0]
+
+    def to(self, device) -> "TriangleAccel":
+        move = lambda x: None if x is None else x.to(device)
+        return dataclasses.replace(
+            self,
+            triangles=self.triangles.to(device),
+            orig_idx=self.orig_idx.to(device),
+            aabb_lo=self.aabb_lo.to(device),
+            aabb_hi=self.aabb_hi.to(device),
+            perm_of_orig=move(self.perm_of_orig),
+            packed_plane=move(self.packed_plane),
+        )
+
+
+def _morton3(q: np.ndarray) -> np.ndarray:
+    """Interleave 10-bit xyz quantized coords into a 30-bit Morton code."""
+
+    def split(v: np.ndarray) -> np.ndarray:
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    x, y, z = (split(q[:, i].astype(np.uint32)) for i in range(3))
+    return x | (y << 1) | (z << 2)
+
+
+def build_accel(tris: Triangles, n_live: int) -> TriangleAccel:
+    """Sort live triangles by centroid Morton code and bound each block.
+
+    Runs on the host in numpy; the result's tensors live on ``tris``'s
+    device.
+    """
+    host = {f.name: getattr(tris, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(tris)}
+    a, b, c = host["a"], host["b"], host["c"]
+    t = a.shape[0]
+
+    if n_live > 0:
+        cent = (a[:n_live] + b[:n_live] + c[:n_live]) / 3.0
+        lo = cent.min(axis=0)
+        span = np.maximum(cent.max(axis=0) - lo, 1e-12)
+        q = np.clip(((cent - lo) / span * 1023.0), 0, 1023).astype(np.uint32)
+        order = np.argsort(_morton3(q), kind="stable").astype(np.int32)
+    else:
+        order = np.zeros((0,), np.int32)
+    perm = np.concatenate([order, np.arange(n_live, t, dtype=np.int32)])
+
+    orig = perm.copy()
+    orig[n_live:] = PAD_ORIG_IDX
+
+    n_blocks = t // BLOCK
+    pa, pb, pc = a[perm], b[perm], c[perm]
+    lo_blocks = np.full((n_blocks, 3), _AABB_BIG, np.float32)
+    hi_blocks = np.full((n_blocks, 3), -_AABB_BIG, np.float32)
+    for blk in range(n_blocks):
+        s, e = blk * BLOCK, min((blk + 1) * BLOCK, n_live)
+        if s >= n_live:
+            continue  # padding-only block: inverted AABB, never hit
+        vs = np.concatenate([pa[s:e], pb[s:e], pc[s:e]], axis=0)
+        lo_blocks[blk] = vs.min(axis=0)
+        hi_blocks[blk] = vs.max(axis=0)
+
+    inv = np.empty((t,), np.int32)
+    inv[perm] = np.arange(t, dtype=np.int32)
+    plane = np.concatenate(
+        [pa.T, (pb - pa).T, (pc - pa).T, host["normal"][perm].T], axis=0
+    ).astype(np.float32)
+
+    dev = tris.a.device
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return TriangleAccel(
+        triangles=Triangles(**{k: put(v[perm]) for k, v in host.items()}),
+        orig_idx=put(orig),
+        aabb_lo=put(lo_blocks),
+        aabb_hi=put(hi_blocks),
+        perm_of_orig=put(inv),
+        packed_plane=put(plane),
+    )
+
+
+def trivial_accel(tris: Triangles) -> TriangleAccel:
+    """Identity accel: no reorder, every block 'always hit' (brute force)."""
+    t = tris.count
+    n_blocks = max(t // BLOCK, 1)
+    dev = tris.a.device
+    return TriangleAccel(
+        triangles=tris,
+        orig_idx=torch.arange(t, dtype=torch.int32, device=dev),
+        aabb_lo=torch.full((n_blocks, 3), -_AABB_BIG, dtype=torch.float32,
+                           device=dev),
+        aabb_hi=torch.full((n_blocks, 3), _AABB_BIG, dtype=torch.float32,
+                           device=dev),
+    )

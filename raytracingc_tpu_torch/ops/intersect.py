@@ -2,10 +2,10 @@
 
 Counterpart of ``raytracingc_tpu/ops/intersect.py``. The search finds, per
 ray, only the winning primitive (an index and flags) and runs under
-``torch.no_grad()``; the triangle pass goes through
-``ops/search_brute.py`` (the CUDA kernel, or its plain version on the CPU).
-The resolve gathers the winner and recomputes distance, hit point, normal
-and material with the same formulas.
+``torch.no_grad()``; the triangle pass goes through the dispatch in
+``ops/search.py`` (a CUDA kernel, or its plain version on the CPU), with the
+scene's accel. The resolve gathers the winner and recomputes distance, hit
+point, normal and material with the same formulas.
 
 Tie rules are the C scan order: the lowest index wins among equal
 distances, and a sphere beats a triangle at equal distance (spheres are
@@ -15,10 +15,11 @@ scanned first and a triangle replaces only on a strictly smaller distance).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
-from raytracingc_tpu_torch.ops.search_brute import search_triangles
+from raytracingc_tpu_torch.ops.search import search_triangles
 from raytracingc_tpu_torch.scene.types import EPSILON, MISS_DST, Scene
 
 
@@ -113,13 +114,15 @@ def _search_spheres(o, d, spheres):
 def nearest_hit(o, d, scene: Scene, backend: str = "auto", alive=None) -> HitRef:
     """Closest-hit search over the whole scene → ``HitRef``.
 
-    ``backend``: see :func:`ops.search_brute.search_triangles`.
-    ``alive``: optional bool ``[R]``; dead lanes get no triangle hit (their
-    results are never read).
+    ``backend``: see :func:`ops.search.search_triangles`.
+    ``alive``: optional bool ``[R]``; a dead lane may get a miss or its real
+    hit, depending on the kernel the search routes to (see
+    :func:`ops.search.search_triangles`), so callers never read dead lanes.
     """
     r = o.shape[0]
     tri_dst, tri_idx = search_triangles(
-        o, d, scene.triangles, scene.n_triangles, alive=alive, backend=backend
+        o, d, scene.triangles, scene.n_triangles, alive=alive, backend=backend,
+        accel=scene.accel,
     )
     if scene.n_spheres > 0:
         sph_dst, sph_idx = _search_spheres(o, d, scene.spheres)
@@ -136,6 +139,11 @@ def nearest_hit(o, d, scene: Scene, backend: str = "auto", alive=None) -> HitRef
     return HitRef(hit=hit, is_tri=is_tri, idx=torch.where(hit, idx, -1))
 
 
+# Padded triangle count from which RTC_RESOLVE=auto resolves through the
+# Morton-permuted table (the JAX package's value, measured on a TPU).
+PERM_RESOLVE_MIN_T = 500_000
+
+
 def _tri_table(tris) -> torch.Tensor:
     """``(T, 17)`` resolve rows: A, B, C, N, albedo, emission, smoothness."""
     return torch.cat(
@@ -143,6 +151,37 @@ def _tri_table(tris) -> torch.Tensor:
          tris.emission[:, None], tris.smoothness[:, None]],
         dim=1,
     )
+
+
+def with_perm_resolve(scene: Scene) -> Scene:
+    """Attach the Morton-permuted ``(T, 17)`` resolve table.
+
+    Winners of nearby rays are spatially near, hence near in the accel's
+    Morton order: gathering their rows from the permuted table reads nearby
+    rows. The rows are copies of the original-order rows, so the resolve
+    gives the same bits. ``RTC_RESOLVE``: ``auto`` (default) attaches the
+    table from :data:`PERM_RESOLVE_MIN_T` padded triangles, ``perm`` always,
+    ``orig`` never. No-op without an accel carrying ``perm_of_orig``, at
+    <= 256 triangles, or when a table is already attached.
+    """
+    mode = os.environ.get("RTC_RESOLVE", "auto")
+    if mode not in ("auto", "perm", "orig"):
+        raise ValueError(f"RTC_RESOLVE={mode!r}: expected 'auto', 'perm' or 'orig'")
+    accel = scene.accel
+    count = scene.triangles.count
+    if (
+        mode == "orig"
+        or (mode == "auto" and count < PERM_RESOLVE_MIN_T)
+        or accel is None
+        or accel.perm_of_orig is None
+        or count <= 256
+        or scene.resolve_perm is not None
+    ):
+        return scene
+    # Padding slots carry a huge orig_idx: clipped to the last row, never
+    # selected.
+    rows = _tri_table(scene.triangles)[accel.orig_idx.long().clamp_max(count - 1)]
+    return dataclasses.replace(scene, resolve_perm=rows)
 
 
 def resolve_hit(o, d, ref: HitRef, scene: Scene) -> Hit:
@@ -158,7 +197,11 @@ def resolve_hit(o, d, ref: HitRef, scene: Scene) -> Hit:
     sph_idx = torch.where(sph_sel, ref.idx, 0).long()
     sph = scene.spheres
 
-    tri_rows = _tri_table(scene.triangles)[tri_idx]  # (R, 17)
+    if scene.resolve_perm is not None:  # see with_perm_resolve
+        slot = scene.accel.perm_of_orig[tri_idx.clamp_max(scene.triangles.count - 1)]
+        tri_rows = scene.resolve_perm[slot.long()]
+    else:
+        tri_rows = _tri_table(scene.triangles)[tri_idx]  # (R, 17)
     a = tri_rows[:, 0:3]
     b = tri_rows[:, 3:6]
     c = tri_rows[:, 6:9]

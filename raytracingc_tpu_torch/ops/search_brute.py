@@ -1,63 +1,24 @@
-"""Brute-force closest-hit triangle search: the CUDA kernel and its dispatch.
+"""Brute-force closest-hit triangle search: the CUDA kernel and its plain version.
 
-Counterpart of the brute branch of
-``raytracingc_tpu/ops/intersect_pallas.py::search_triangles_pallas`` and of
-its kernel ``_search_kernel_brute``. The kernel is
+Counterpart of ``raytracingc_tpu/ops/intersect_pallas.py::_search_kernel_brute``
+(with the dead-lane post-mask of its launcher). The kernel is
 ``csrc/search_brute.cu``; :func:`search_brute_reference` is its plain
 PyTorch version with the same op order, used on CPU tensors and by the tests
-and ``chip_smoke.py`` to hold the kernel against.
+and ``chip_smoke.py`` to hold the kernel against. :func:`mt_distance` is the
+Möller–Trumbore arithmetic every plain search version shares (``csrc/mt.cuh``
+on the card). Dispatch lives in ``ops/search.py``.
 
 Triangles reach the kernel packed as ``[T, 12]`` float32 rows of A, AB, AC, N
 (:func:`pack_triangles`), with AB and AC built as ``b - a`` and ``c - a`` as
 the JAX launcher builds them. Results are ``dst [R]`` float32 and the
 original triangle index ``idx [R]`` int32 (-1 on a miss or a dead lane).
-
-Knobs, read on every call and validated loudly:
-
-* ``RTC_KERNEL``: ``auto`` (default) or ``brute``. ``packet`` and ``mxu`` are
-  the JAX package's other kernels, not ported yet.
-* ``RTC_BRUTE_MAX``: the live-triangle count up to which ``auto`` uses the
-  brute kernel (default :data:`BRUTE_MAX_TRIS`).
 """
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from raytracingc_tpu_torch.scene.types import EPSILON, MISS_DST, Triangles
-
-# Auto-dispatch bound, ported as the starting value from the JAX package
-# (measured there on a TPU; not yet re-measured on a GPU).
-BRUTE_MAX_TRIS = 1536
-
-_NOT_PORTED = {
-    "packet": "the bitmask and packed kernels (ROADMAP Queue 2 K2-K3)",
-    "mxu": "the MXU kernel (ROADMAP Queue 2 K8)",
-}
-
-
-def kernel_choice() -> str:
-    """``RTC_KERNEL``: ``auto`` or ``brute``; anything else raises."""
-    v = os.environ.get("RTC_KERNEL", "auto")
-    if v in _NOT_PORTED:
-        raise NotImplementedError(f"RTC_KERNEL={v}: {_NOT_PORTED[v]} not ported yet")
-    if v not in ("auto", "brute"):
-        raise ValueError(f"RTC_KERNEL={v!r}: expected 'auto' or 'brute'")
-    return v
-
-
-def brute_max() -> int:
-    """``RTC_BRUTE_MAX``: a non-negative integer; anything else raises."""
-    v = os.environ.get("RTC_BRUTE_MAX", str(BRUTE_MAX_TRIS))
-    try:
-        n = int(v)
-    except ValueError:
-        raise ValueError(f"RTC_BRUTE_MAX={v!r}: expected an integer") from None
-    if n < 0:
-        raise ValueError(f"RTC_BRUTE_MAX={v!r}: expected an integer >= 0")
-    return n
 
 
 def pack_triangles(tris: Triangles, n_live: int) -> torch.Tensor:
@@ -67,6 +28,41 @@ def pack_triangles(tris: Triangles, n_live: int) -> torch.Tensor:
         [a, tris.b[:n_live] - a, tris.c[:n_live] - a, tris.normal[:n_live]],
         dim=1,
     ).contiguous()
+
+
+def mt_distance(ray, tri):
+    """Möller–Trumbore distance, or ``MISS_DST`` where the test rejects.
+
+    ``ray = (ox, oy, oz, dx, dy, dz)`` and ``tri = (ax, ay, az, abx, aby,
+    abz, acx, acy, acz, nx, ny, nz)`` broadcast against each other. The op
+    order is the TPU kernels' (``_mt_block_test``) and the CUDA kernels'
+    (``csrc/mt.cuh``): backface cull on the stored normal, the
+    ``|det| < EPSILON`` guard, IEEE division, each product and sum rounded
+    on its own.
+    """
+    ox, oy, oz, dx, dy, dz = ray
+    ax, ay, az, abx, aby, abz, acx, acy, acz, nx, ny, nz = tri
+    dn = dx * nx + dy * ny + dz * nz  # backface cull
+    hx = dy * acz - dz * acy
+    hy = dz * acx - dx * acz
+    hz = dx * acy - dy * acx
+    det = abx * hx + aby * hy + abz * hz
+    degenerate = det.abs() < EPSILON
+    inv_det = 1.0 / torch.where(degenerate, 1.0, det)
+    sx = ox - ax
+    sy = oy - ay
+    sz = oz - az
+    u = (sx * hx + sy * hy + sz * hz) * inv_det
+    qx = sy * abz - sz * aby
+    qy = sz * abx - sx * abz
+    qz = sx * aby - sy * abx
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    dst = (acx * qx + acy * qy + acz * qz) * inv_det
+    valid = (
+        (dn < 0.0) & ~degenerate & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+        & (u + v <= 1.0) & (dst >= EPSILON)
+    )
+    return torch.where(valid, dst, MISS_DST)
 
 
 def search_brute_reference(o, d, tri, n_live, alive=None, chunk=256):
@@ -79,33 +75,10 @@ def search_brute_reference(o, d, tri, n_live, alive=None, chunk=256):
     r = o.shape[0]
     best_d = torch.full((r,), MISS_DST, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), -1, dtype=torch.int32, device=o.device)
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]  # [R, 1]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    ray = (o[:, 0:1], o[:, 1:2], o[:, 2:3], d[:, 0:1], d[:, 1:2], d[:, 2:3])
     for base in range(0, n_live, chunk):
         t = tri[base:min(base + chunk, n_live)]
-        ax, ay, az, abx, aby, abz, acx, acy, acz, nx, ny, nz = t.T  # [C] each
-
-        dn = dx * nx + dy * ny + dz * nz  # backface cull
-        hx = dy * acz - dz * acy
-        hy = dz * acx - dx * acz
-        hz = dx * acy - dy * acx
-        det = abx * hx + aby * hy + abz * hz
-        degenerate = det.abs() < EPSILON
-        inv_det = 1.0 / torch.where(degenerate, 1.0, det)
-        sx = ox - ax
-        sy = oy - ay
-        sz = oz - az
-        u = (sx * hx + sy * hy + sz * hz) * inv_det
-        qx = sy * abz - sz * aby
-        qy = sz * abx - sx * abz
-        qz = sx * aby - sy * abx
-        v = (dx * qx + dy * qy + dz * qz) * inv_det
-        dst = (acx * qx + acy * qy + acz * qz) * inv_det
-        valid = (
-            (dn < 0.0) & ~degenerate & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-            & (u + v <= 1.0) & (dst >= EPSILON)
-        )
-        dst = torch.where(valid, dst, MISS_DST)
+        dst = mt_distance(ray, t.T)  # [R, C]
         dmin, j = dst.min(dim=1)  # first minimum
         better = dmin < best_d  # strict <: the earlier chunk keeps ties
         best_d = torch.where(better, dmin, best_d)
@@ -148,7 +121,8 @@ def search_brute(o, d, tri, n_live, alive=None):
 
     A CPU tensor runs :func:`search_brute_reference`. A CUDA tensor launches
     the kernel (building it on first use) and counts the launch in
-    ``search_brute.launches``; any other device raises.
+    ``search_brute.launches``; any other device raises. Dead lanes report
+    ``(MISS_DST, -1)``.
     """
     _check_args(o, d, tri, n_live, alive)
     if o.device.type == "cpu":
@@ -178,36 +152,3 @@ def search_brute(o, d, tri, n_live, alive=None):
 
 
 search_brute.launches = 0
-
-
-def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
-                     backend: str = "auto"):
-    """Triangle search dispatch: ``(dst [R], idx [R])`` in original order.
-
-    ``backend``: ``"auto"`` (the kernel on a CUDA tensor, the plain version
-    on the CPU), ``"xla"`` (the plain version on either device; the name is
-    the JAX package's, kept for the CLI's A/B flag) or ``"pallas"`` (the
-    CUDA kernel; raises on the CPU).
-    """
-    if backend not in ("auto", "xla", "pallas"):
-        raise ValueError(f"backend={backend!r}: expected auto, xla or pallas")
-    variant = kernel_choice()
-    limit = brute_max()
-    tri = pack_triangles(tris, n_live)
-    o, d = o.contiguous(), d.contiguous()
-    if backend == "xla":
-        return search_brute_reference(o, d, tri, n_live, alive)
-    if o.device.type != "cuda":
-        if backend == "pallas":
-            raise RuntimeError(
-                f"backend='pallas' needs a CUDA device; the rays are on {o.device}"
-            )
-        return search_brute(o, d, tri, n_live, alive)
-    if variant == "auto" and n_live > limit:
-        raise NotImplementedError(
-            f"{n_live} live triangles > RTC_BRUTE_MAX={limit}: auto dispatch "
-            "would run the bitmask or packed kernel, not ported yet (ROADMAP "
-            "Queue 2 K2-K3); set RTC_KERNEL=brute to run the brute kernel at "
-            "any size"
-        )
-    return search_brute(o, d, tri, n_live, alive)

@@ -26,7 +26,12 @@ import torch
 
 from raytracingc_tpu_torch import rng
 from raytracingc_tpu_torch.ops.env_light import environment_light
-from raytracingc_tpu_torch.ops.intersect import Hit, nearest_hit, resolve_hit
+from raytracingc_tpu_torch.ops.intersect import (
+    Hit,
+    nearest_hit,
+    resolve_hit,
+    with_perm_resolve,
+)
 from raytracingc_tpu_torch.scene.types import Scene
 
 
@@ -125,7 +130,8 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
 
     Each sample has its own RNG stream keyed by (seed, ray_id, sample_id),
     ``sample_id`` running from ``sample_offset``. Only the production mode is
-    ported; other modes raise ``NotImplementedError``.
+    ported; other modes raise ``NotImplementedError``. The Morton-permuted
+    resolve table is attached once here (``with_perm_resolve``).
     """
     if not (early_exit and compact and sample_batch == 1 and sample_group == 1):
         raise NotImplementedError(
@@ -135,6 +141,7 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
         )
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
+    scene = with_perm_resolve(scene)
     r = origins.shape[0]
     if max_bounce < 1:
         return torch.zeros((r, 3), dtype=torch.float32, device=origins.device), 0

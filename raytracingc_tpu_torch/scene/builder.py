@@ -5,7 +5,8 @@ reference's rotZ(180°) import convention (x and y of positions AND normals
 negated). Default mode (``triangles.txt``) adds the hard-coded sphere list.
 Triangle counts are padded to a multiple of 128 with all-zero triangles and
 sphere counts to a multiple of 8 with radius-0 spheres, exactly as the JAX
-package pads, so both packages hold the same arrays.
+package pads, so both packages hold the same arrays. Both loaders attach the
+block-AABB accel (``ops/accel.py``), as the JAX loaders do.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ def scene_from_obj(path: str, env: EnvParams | None = None, pad_to: int = 128,
         env=env.to(device) if env is not None else EnvParams.default(device),
         n_triangles=n_live,
         n_spheres=0,
-    )
+    ).with_accel()
 
 
 def scene_from_triangles_txt(path: str, env: EnvParams | None = None,
@@ -111,7 +112,7 @@ def scene_from_triangles_txt(path: str, env: EnvParams | None = None,
         env=env.to(device) if env is not None else EnvParams.default(device),
         n_triangles=n_live,
         n_spheres=n_sph,
-    )
+    ).with_accel()
 
 
 def tessellate(tris: Triangles, n_live: int, levels: int = 1) -> tuple[Triangles, int]:

@@ -10,9 +10,13 @@ padding spheres have radius 0 (never hit), exactly as there.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from raytracingc_tpu_torch.ops.accel import TriangleAccel
 
 # The reference's intersection epsilon and miss sentinel.
 EPSILON = 1e-3
@@ -139,9 +143,13 @@ class Scene:
     """Geometry and environment. ``n_triangles``/``n_spheres`` are the live
     (unpadded) counts.
 
-    ``accel`` and ``resolve_perm`` mirror the JAX scene's fields and stay
-    ``None``: the brute-force search needs no accel, and the permuted
-    resolve applies only far past the brute kernel's range.
+    ``accel`` optionally carries the Morton block-AABB structure of
+    ``ops.accel.build_accel`` (a permuted copy of the triangles plus block
+    bounds); the packet kernels search through it, with the same results as
+    without. It does not follow edits of ``triangles``: change triangles
+    through :meth:`with_triangles`. ``resolve_perm`` is the Morton-permuted
+    resolve table that ``ops.intersect.with_perm_resolve`` attaches at
+    integrator entry (``None``: the resolve gathers original-order rows).
     """
 
     triangles: Triangles
@@ -149,8 +157,8 @@ class Scene:
     env: EnvParams
     n_triangles: int
     n_spheres: int
-    accel: None = None
-    resolve_perm: None = None
+    accel: TriangleAccel | None = None
+    resolve_perm: torch.Tensor | None = None
 
     def __post_init__(self):
         # The builders pad to >= 128 triangle rows and >= 8 sphere rows; the
@@ -167,10 +175,13 @@ class Scene:
             raise ValueError(
                 f"n_spheres={self.n_spheres} outside [0, {self.spheres.count}]"
             )
-        if self.accel is not None or self.resolve_perm is not None:
-            raise NotImplementedError(
-                "accel / resolve_perm: not ported yet (ROADMAP Queue 1 item 6)"
+        if self.accel is not None and self.accel.orig_idx.shape[0] != self.triangles.count:
+            raise ValueError(
+                f"accel covers {self.accel.orig_idx.shape[0]} triangle rows, "
+                f"the scene has {self.triangles.count}"
             )
+        if self.resolve_perm is not None and self.accel is None:
+            raise ValueError("resolve_perm needs the accel whose order it has")
 
     @property
     def device(self) -> torch.device:
@@ -182,4 +193,29 @@ class Scene:
             triangles=self.triangles.to(device),
             spheres=self.spheres.to(device),
             env=self.env.to(device),
+            accel=None if self.accel is None else self.accel.to(device),
+            resolve_perm=(None if self.resolve_perm is None
+                          else self.resolve_perm.to(device)),
         )
+
+    def with_accel(self) -> "Scene":
+        """A copy carrying a freshly built block-AABB accel."""
+        from raytracingc_tpu_torch.ops.accel import build_accel
+
+        return dataclasses.replace(
+            self, accel=build_accel(self.triangles, self.n_triangles),
+            resolve_perm=None,
+        )
+
+    def with_triangles(self, triangles: Triangles,
+                       rebuild_accel: bool = False) -> "Scene":
+        """Replace the triangles, dropping (or rebuilding) the accel.
+
+        As in the JAX package, ``n_triangles`` becomes ``triangles.count``.
+        A bare ``dataclasses.replace(scene, triangles=...)`` would leave the
+        accel's frozen copy of the old triangles in place.
+        """
+        out = dataclasses.replace(self, triangles=triangles, accel=None,
+                                  resolve_perm=None,
+                                  n_triangles=triangles.count)
+        return out.with_accel() if rebuild_accel else out

@@ -220,8 +220,12 @@ def test_search_backends_agree_and_validate(monkeypatch):
     with pytest.raises(RuntimeError, match="no kernel"):
         sb.search_brute(o.to("meta"), d.to("meta"), tri.to("meta"), ts.n_triangles)
 
+    # The packet kernels' plain versions give the brute scan's winners.
     monkeypatch.setenv("RTC_KERNEL", "packet")
-    with pytest.raises(NotImplementedError, match="K2"):
+    packet = nearest_hit(o, d, ts)
+    assert torch.equal(packet.idx, plain.idx)
+    monkeypatch.setenv("RTC_KERNEL", "mxu")
+    with pytest.raises(NotImplementedError, match="K8"):
         nearest_hit(o, d, ts)
     monkeypatch.setenv("RTC_KERNEL", "brutte")
     with pytest.raises(ValueError):
@@ -230,8 +234,7 @@ def test_search_backends_agree_and_validate(monkeypatch):
     monkeypatch.setenv("RTC_BRUTE_MAX", "-3")
     with pytest.raises(ValueError):
         nearest_hit(o, d, ts)
-    # On the CPU the plain search runs at any size, as the JAX package's
-    # XLA search does.
+    # Past RTC_BRUTE_MAX auto dispatch takes the bitmask route.
     monkeypatch.setenv("RTC_KERNEL", "auto")
     monkeypatch.setenv("RTC_BRUTE_MAX", "4")
     small = nearest_hit(o, d, ts)
