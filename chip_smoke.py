@@ -40,7 +40,8 @@ TIMED_RAYS = 65536
 # Phase 3b: the packet kernels against their plain versions, bit for bit,
 # and their live-lane winners against the brute scan over all live
 # triangles. (label, scene, live triangles, knobs, expected kernel); the
-# scene is a seeded soup or box_scene tessellated to that count.
+# scene is a seeded soup or box_scene tessellated to that count, and the
+# label starts with the TPU kernel that the route stands for (checked).
 PACKET_CASES = (
     ("K2 soup 1,600 (1 word)", "soup", 1600, {}, "bitmask"),
     ("K2 soup 10,240 (3 words)", "soup", 10240, {}, "bitmask"),
@@ -54,12 +55,34 @@ PACKET_CASES = (
     ("K3 box 163,840 streamed", "box", 163840, {}, "packed"),
     ("K3 box 163,840 streamed, tile 12,000", "box", 163840,
      {"RTC_STREAM_TILE": "12000"}, "packed"),
+    ("K4 soup 10,240 (RTC_CULL=range)", "soup", 10240, {"RTC_CULL": "range"},
+     "range"),
+    ("K4 box 40,960 (RTC_CULL=range)", "box", 40960, {"RTC_CULL": "range"},
+     "range"),
+    ("K5 box 163,840 streamed (RTC_CULL=range)", "box", 163840,
+     {"RTC_CULL": "range"}, "range"),
+    ("K5 box 163,840 streamed, tile 12,000 (RTC_CULL=range)", "box", 163840,
+     {"RTC_CULL": "range", "RTC_STREAM_TILE": "12000"}, "range"),
+    ("K6 box 40,960 resident (RTC_STREAM_CULL=words)", "box", 40960,
+     {"RTC_STREAM_CULL": "words"}, "words"),
+    ("K6 box 163,840 streamed (RTC_STREAM_CULL=words RTC_STREAM_ORDER=ray)",
+     "box", 163840, {"RTC_STREAM_CULL": "words", "RTC_STREAM_ORDER": "ray"},
+     "words"),
+    ("K7 box 163,840 streamed (RTC_STREAM_CULL=words)", "box", 163840,
+     {"RTC_STREAM_CULL": "words"}, "words"),
 )
-# Timed at R = TIMED_RAYS (kernel, plain): the main path's shapes.
+# Timed at R = TIMED_RAYS (kernel, plain) at the main path's shapes: {label:
+# iterations of the plain version}. The range kernels' plain version tests
+# every block of each span, so its time grows with the span: fewer runs.
 TIMED_PACKET = {
-    "K2 box 10,240 (3 words)": "search_bitmask",
-    "K3 box 40,960 resident": "search_packed",
-    "K3 box 163,840 streamed": "search_packed",
+    "K2 box 10,240 (3 words)": 3,
+    "K3 box 40,960 resident": 3,
+    "K3 box 163,840 streamed": 3,
+    "K4 box 40,960 (RTC_CULL=range)": 1,
+    "K5 box 163,840 streamed (RTC_CULL=range)": 1,
+    "K6 box 40,960 resident (RTC_STREAM_CULL=words)": 3,
+    "K6 box 163,840 streamed (RTC_STREAM_CULL=words RTC_STREAM_ORDER=ray)": 3,
+    "K7 box 163,840 streamed (RTC_STREAM_CULL=words)": 3,
 }
 
 # Phase 4: the main path through the CLI, in default mode on box_scene.
@@ -68,26 +91,37 @@ TIMED_PACKET = {
 # tracked 1920x1080, 8 spp, 8 bounces configuration, (c) tessellated to 640
 # live triangles; (d)-(f) tessellate box_scene past the brute kernel's
 # range, one run per packet route, at 1920x1080 and 8 bounces with spp cut
-# from 8 to 2 to bound the run time. (label, flags, image shape, kernel).
+# from 8 to 2 to bound the run time. (g)-(j) are the A/B culling routes, with
+# the flags of (d)-(f), under the RTC_* knobs their users set: each must
+# write a BMP byte-identical to its default-route twin's and trace as many
+# rays. (label, flags, image shape, kernel, knobs, twin).
+_TESS = ["-s", "1920", "1080", "--spp", "2", "-b", "8", "--tessellate"]
 MAIN_RUNS = (
     ("a: 128x128, 10 bounces, 256 spp (CLI defaults, spp cut from 4000)",
-     ["--spp", "256"], (128, 128), "search_brute"),
+     ["--spp", "256"], (128, 128), "search_brute", {}, None),
     ("b: 1920x1080, 8 spp, 8 bounces",
      ["-s", "1920", "1080", "--spp", "8", "-b", "8"], (1080, 1920),
-     "search_brute"),
+     "search_brute", {}, None),
     ("c: as b, --tessellate 3 (640 triangles)",
      ["-s", "1920", "1080", "--spp", "8", "-b", "8", "--tessellate", "3"],
-     (1080, 1920), "search_brute"),
+     (1080, 1920), "search_brute", {}, None),
     ("d: 1920x1080, 8 bounces, 2 spp (cut from 8), --tessellate 5 "
      "(10,240 triangles, bitmask)",
-     ["-s", "1920", "1080", "--spp", "2", "-b", "8", "--tessellate", "5"],
-     (1080, 1920), "search_bitmask"),
+     _TESS + ["5"], (1080, 1920), "search_bitmask", {}, None),
     ("e: as d, --tessellate 6 (40,960 triangles, packed resident)",
-     ["-s", "1920", "1080", "--spp", "2", "-b", "8", "--tessellate", "6"],
-     (1080, 1920), "search_packed"),
+     _TESS + ["6"], (1080, 1920), "search_packed", {}, None),
     ("f: as d, --tessellate 7 (163,840 triangles, packed streamed)",
-     ["-s", "1920", "1080", "--spp", "2", "-b", "8", "--tessellate", "7"],
-     (1080, 1920), "search_packed"),
+     _TESS + ["7"], (1080, 1920), "search_packed", {}, None),
+    ("g: as d, RTC_CULL=range (K4, resident range)",
+     _TESS + ["5"], (1080, 1920), "search_range", {"RTC_CULL": "range"}, "d"),
+    ("h: as f, RTC_CULL=range (K5, streamed range)",
+     _TESS + ["7"], (1080, 1920), "search_range", {"RTC_CULL": "range"}, "f"),
+    ("i: as e, RTC_STREAM_CULL=words (K6, resident words)",
+     _TESS + ["6"], (1080, 1920), "search_words",
+     {"RTC_STREAM_CULL": "words"}, "e"),
+    ("j: as f, RTC_STREAM_CULL=words (K7, streamed words)",
+     _TESS + ["7"], (1080, 1920), "search_words",
+     {"RTC_STREAM_CULL": "words"}, "f"),
 )
 # Plausible band for the tonemapped image's mean byte value: a lit room seen
 # from inside (no sky in view), neither black nor blown out.
@@ -220,8 +254,23 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         search_packed,
         search_packed_reference,
     )
+    from raytracingc_tpu_torch.ops.search_range import (
+        search_range,
+        search_range_reference,
+    )
+    from raytracingc_tpu_torch.ops.search_words import (
+        search_words,
+        search_words_reference,
+    )
 
-    timings, max_err = {}, {"search_bitmask": 0.0, "search_packed": 0.0}
+    routes = {  # route kernel: (wrapper, plain version)
+        "bitmask": (search_bitmask, search_bitmask_reference),
+        "packed": (search_packed, search_packed_reference),
+        "range": (search_range, search_range_reference),
+        "words": (search_words, search_words_reference),
+    }
+    timings = {}
+    max_err = {fn.__name__: 0.0 for fn, _ in routes.values()}
     for label, kind, n_live, env, expect in cases:
         t = time.time()
         tris, n, (lo, hi) = packet_scene(rng, kind, n_live)
@@ -229,13 +278,13 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         accel = build_accel(tris, n)
         with knobs_set(env):
             way = search.route(n, accel.n_blocks, search.Knobs.read())
-        if way.kernel != expect:
+        if way.kernel != expect or not label.startswith(way.tpu + " "):
             raise AssertionError(f"{label}: routed to {way}, expected {expect}")
+        kern, plain = routes[way.kernel]
+        name = kern.__name__
         if way.kernel == "bitmask":
-            kern, plain, name = search_bitmask, search_bitmask_reference, "search_bitmask"
             plane, oi = accel.packed_plane, accel.orig_idx
         else:
-            kern, plain, name = search_packed, search_packed_reference, "search_packed"
             plane, oi = culling.stream_tile_pad(accel.packed_plane,
                                                 accel.orig_idx, way.tile)
         brute_tri = pack_triangles(tris, n)
@@ -244,14 +293,21 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
             o, d, alive = (torch.from_numpy(x).to(dev)
                            for x in packet_rays(rng, n_rays, lo, hi))
             o_p, d_p, a_p = culling.packets(o, d, alive)
+            bpt = way.tile // BLOCK
             if way.kernel == "bitmask":
                 words = culling.packet_block_masks(o_p, d_p, a_p, accel)
                 args = (o, d, words, plane, oi)
-            else:
+            elif way.kernel == "packed":
                 words = culling.packet_tile_words_multi(
-                    o_p, d_p, a_p, accel, way.n_tiles, way.tile // BLOCK,
-                    way.granule)
+                    o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
                 args = (o, d, words, plane, oi, way.tile, way.granule)
+            elif way.kernel == "words":
+                words = culling.packet_tile_words(
+                    o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
+                args = (o, d, words, plane, oi, way.tile, way.granule)
+            else:
+                first, last = culling.packet_block_ranges(o_p, d_p, a_p, accel)
+                args = (o, d, first, last, plane, oi)
             dk, ik = kern(*args)
             dr, ir = plain(*args)
             db, ib = search_brute_reference(o, d, brute_tri, n, alive)
@@ -270,21 +326,28 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
             if hits < n_rays // 100:
                 raise AssertionError(f"{where}: only {hits} live rays hit")
             max_err[name] = max(max_err[name], float((dk - dr).abs().max()))
-            notes.append(f"R={n_rays}: {hits} live hits, "
-                         f"{int((words != 0).sum())} nonzero words")
+            if way.kernel == "range":
+                span = (last - first + 1)[first <= last].float()
+                notes.append(f"R={n_rays}: {hits} live hits, {span.numel()} "
+                             f"nonempty spans of {span.mean():.1f} blocks on "
+                             f"average")
+            else:
+                notes.append(f"R={n_rays}: {hits} live hits, "
+                             f"{int((words != 0).sum())} nonzero words")
             if n_rays == TIMED_RAYS and label in TIMED_PACKET:
                 timings[label] = (cuda_ms(lambda: kern(*args), 20),
-                                  cuda_ms(lambda: plain(*args), 3))
+                                  cuda_ms(lambda: plain(*args),
+                                          TIMED_PACKET[label]))
         phase("kernel", t, f"{label}: {name} == plain bitwise, live lanes == "
-              f"brute scan; {way.kernel} tile={way.tile} n_tiles={way.n_tiles} "
-              f"granule={way.granule}; " + "; ".join(notes))
+              f"brute scan; {way.kernel} ({way.tpu}) tile={way.tile} "
+              f"n_tiles={way.n_tiles} granule={way.granule}; " + "; ".join(notes))
     return timings, max_err
 
 
 def cuda_ms(fn, iters: int) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(min(3, iters)):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -314,6 +377,8 @@ def main() -> int:
         search_brute_reference,
     )
     from raytracingc_tpu_torch.ops.search_packed import search_packed
+    from raytracingc_tpu_torch.ops.search_range import search_range
+    from raytracingc_tpu_torch.ops.search_words import search_words
     from raytracingc_tpu_torch.render.image import read_bmp
     from raytracingc_tpu_torch.render.renderer import render
     from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
@@ -388,23 +453,24 @@ def main() -> int:
         for label, (k, p) in packet_times.items()))
 
     # 4. Main path: the CLI in default mode, on the card. Every kernel's
-    # count is set to 0 here and read after each run.
+    # count is set to 0 just before each run and read just after it.
     kernels = {"search_brute": search_brute, "search_bitmask": search_bitmask,
-               "search_packed": search_packed}
-    for fn in kernels.values():
-        fn.launches = 0
+               "search_packed": search_packed, "search_range": search_range,
+               "search_words": search_words}
     total_launches = dict.fromkeys(kernels, 0)
+    traced = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (label, extra, shape, expect) in enumerate(MAIN_RUNS):
+        for label, extra, shape, expect, env, twin in MAIN_RUNS:
             t = time.time()
-            out = os.path.join(tmp, f"main_{i}.bmp")
-            before = {k: fn.launches for k, fn in kernels.items()}
+            out = os.path.join(tmp, f"main_{label[0]}.bmp")
+            for fn in kernels.values():
+                fn.launches = 0
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), knobs_set(env):
                 rc = cli_main(["--device", "cuda", "--triangles", BOX_SCENE,
                                "-o", out, "--profile", *extra])
             log = buf.getvalue()
-            launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            launched = {k: fn.launches for k, fn in kernels.items()}
             for k, v in launched.items():
                 total_launches[k] += v
             if rc != 0:
@@ -427,9 +493,20 @@ def main() -> int:
                                      f"{MEAN_BAND}")
             if rays <= 0:
                 raise AssertionError(f"{label}: no rays traced")
+            traced[label[0]] = rays
+            same = ""
+            if twin is not None:
+                with open(out, "rb") as f, open(
+                        os.path.join(tmp, f"main_{twin}.bmp"), "rb") as g:
+                    if f.read() != g.read():
+                        raise AssertionError(f"{label}: BMP differs from ({twin})'s")
+                if rays != traced[twin]:
+                    raise AssertionError(f"{label}: {rays} traced rays, ({twin}) "
+                                         f"traced {traced[twin]}")
+                same = f", BMP byte-identical to ({twin})'s, same ray count"
             phase("main", t, f"{label}: render {render_s:.3f}s, {rays} rays, "
                   f"{rays / render_s:.4g} rays/s, {launched[expect]} {expect} "
-                  f"launches, mean byte {mean:.2f}")
+                  f"launches, mean byte {mean:.2f}{same}")
 
     # 5. The port on the card vs the port on the CPU.
     t = time.time()
@@ -461,7 +538,8 @@ def main() -> int:
 
     # The kernel line's times are those at the main path's shapes: R =
     # TIMED_RAYS with box_scene at 640 (brute), 10,240 (bitmask) and 163,840
-    # (packed, streamed) triangles; the [kernel] lines have the others.
+    # (packed, range and words streamed) triangles; the [kernel] lines have
+    # the others.
     src = "raytracingc_tpu_torch/csrc/{}.cu"
     tpu = "raytracingc_tpu/ops/intersect_pallas.py:{}"
     rows = [
@@ -470,6 +548,12 @@ def main() -> int:
          packet_times["K2 box 10,240 (3 words)"], packet_err["search_bitmask"]),
         ("search_packed", tpu.format(869),
          packet_times["K3 box 163,840 streamed"], packet_err["search_packed"]),
+        ("search_range", f"{tpu.format(176)} (K4), {tpu.format(350)} (K5)",
+         packet_times["K5 box 163,840 streamed (RTC_CULL=range)"],
+         packet_err["search_range"]),
+        ("search_words", f"{tpu.format(428)} (K6), {tpu.format(598)} (K7)",
+         packet_times["K7 box 163,840 streamed (RTC_STREAM_CULL=words)"],
+         packet_err["search_words"]),
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": [{

@@ -109,4 +109,36 @@ __device__ __forceinline__ void for_each_bit(uint32_t m, F&& f) {
   }
 }
 
+// The walk of the tiled word tables (search_packed.cu, search_words.cu).
+// packet_words holds this lane's n_words words for each of n_tiles tiles of
+// blocks_per_tile blocks; bit j of word w of tile t covers the tile-local
+// blocks [(w * 31 + j) * granule, ... + granule), clipped to the tile. Tests
+// those blocks of the (12, n_tiles * blocks_per_tile * 128) plane in
+// ascending order and keeps the running best. n_tiles and n_words must be
+// the same over the warp; out-of-range lanes pass in_range = false.
+__device__ __forceinline__ void walk_tile_words(
+    const Ray& ray, const int32_t* __restrict__ packet_words, bool in_range,
+    int n_tiles, int n_words, int blocks_per_tile, int granule,
+    const float* __restrict__ plane, const int32_t* __restrict__ orig_idx,
+    float& best_d, int32_t& best_i) {
+  const int64_t t_stride =
+      static_cast<int64_t>(n_tiles) * blocks_per_tile * kBlock;
+  for (int t = 0; t < n_tiles; ++t) {  // uniform over the grid
+    const int64_t tile_base = static_cast<int64_t>(t) * blocks_per_tile;
+    for (int w = 0; w < n_words; ++w) {
+      const uint32_t m =
+          in_range ? static_cast<uint32_t>(__ldg(packet_words + t * n_words + w))
+                   : 0u;
+      for_each_bit(m, [&](int j) {
+        const int start = (w * kBitsPerWord + j) * granule;
+        const int end = min(start + granule, blocks_per_tile);
+        for (int b = start; b < end; ++b) {
+          mt_block(ray, plane, orig_idx, t_stride, tile_base + b, best_d,
+                   best_i);
+        }
+      });
+    }
+  }
+}
+
 }  // namespace rtc

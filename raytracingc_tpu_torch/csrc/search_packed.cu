@@ -55,29 +55,14 @@ search_packed_kernel(const float* __restrict__ o,           // [R, 3]
   const int r = blockIdx.x * kThreads + threadIdx.x;
   const bool in_range = r < n_rays;
   const rtc::Ray ray = rtc::load_ray(o, d, r, in_range);
-  const int64_t t_stride =
-      static_cast<int64_t>(n_tiles) * blocks_per_tile * rtc::kBlock;
   const int32_t* packet_words =
       words + static_cast<int64_t>(r / rtc::kPacket) * n_tiles * n_words;
 
   float best_d = rtc::kMissDst;
   int32_t best_i = rtc::kBigIdx;
-  for (int t = 0; t < n_tiles; ++t) {  // uniform over the grid
-    const int64_t tile_base = static_cast<int64_t>(t) * blocks_per_tile;
-    for (int w = 0; w < n_words; ++w) {
-      const uint32_t m =
-          in_range ? static_cast<uint32_t>(__ldg(packet_words + t * n_words + w))
-                   : 0u;
-      rtc::for_each_bit(m, [&](int j) {
-        const int start = (w * rtc::kBitsPerWord + j) * granule;
-        const int end = min(start + granule, blocks_per_tile);
-        for (int b = start; b < end; ++b) {
-          rtc::mt_block(ray, plane, orig_idx, t_stride, tile_base + b,
-                        best_d, best_i);
-        }
-      });
-    }
-  }
+  rtc::walk_tile_words(ray, packet_words, in_range, n_tiles, n_words,
+                       blocks_per_tile, granule, plane, orig_idx, best_d,
+                       best_i);
   if (in_range) {
     dst_out[r] = best_d;
     idx_out[r] = best_d < rtc::kMissDst ? best_i : -1;

@@ -2,13 +2,14 @@
 
 Counterpart of the XLA-side preludes in
 ``raytracingc_tpu/ops/intersect_pallas.py`` (``_slab_any_hit``,
-``packet_block_masks``, ``packet_tile_words_multi``,
-``stream_words_per_pair``, ``_stream_granule``, ``_stream_tile_pad``), as
-plain PyTorch ops on the rays' device. Rays are grouped in packets of
-:data:`RAY_SUBLANES` (ray ``r`` is in packet ``r // 8``); a bit is set iff
+``packet_block_masks``, ``packet_block_ranges``, ``packet_tile_words``,
+``packet_tile_words_multi``, ``stream_words_per_pair``, ``_stream_granule``,
+``_stream_tile_pad``), as plain PyTorch ops on the rays' device. Rays are
+grouped in packets of :data:`RAY_SUBLANES` (ray ``r`` is in packet
+``r // 8``); a bit is set (or a block falls inside a packet's span) iff
 some live lane of the packet passes the slab test of a block's (or a
-granule's union) AABB. The words are integers computed with the JAX
-package's op order, so they equal its words bit for bit.
+granule's union) AABB. The results are integers computed with the JAX
+package's op order, so they equal its own bit for bit.
 
 Memory: a slab test of C packets against G boxes makes ``(C, 8, G, 3)``
 float32 temporaries, so the boxes are tested in word groups sized to
@@ -43,6 +44,7 @@ _RAYS_PER_PROGRAM = RAY_SUBLANES * 128
 # Float32 elements per slab-test temporary (64 MiB).
 SLAB_ELEMS_BUDGET = 1 << 24
 _BOX_BIG = 3.0e38  # padding box bound: an inverted box, masked as invalid
+EMPTY_FIRST = 2**30  # `first` of an empty block span (its `last` is -1)
 
 
 def round_up(n: int, m: int) -> int:
@@ -127,6 +129,51 @@ def packet_block_masks(o_p, d_p, a_p, accel: TriangleAccel):
                         n_words * BITS_PER_WORD, 0)
     return _box_words(lo.reshape(n_words, BITS_PER_WORD, 3),
                       hi.reshape(n_words, BITS_PER_WORD, 3), o_p, d_p, a_p)
+
+
+def packet_block_ranges(o_p, d_p, a_p, accel: TriangleAccel):
+    """Per-packet hitting-block span of the range kernel: ``(first [C],
+    last [C])`` int32.
+
+    ``first``/``last`` are the lowest and highest block that passes the slab
+    test for some live lane of the packet; a packet that passes none has the
+    empty span ``first =`` :data:`EMPTY_FIRST` (``2**30``), ``last = -1``,
+    as in the JAX package. The blocks are tested in groups sized to
+    :data:`SLAB_ELEMS_BUDGET`; a min or max over groups is the min or max
+    over all blocks, so the grouping changes no bit.
+    """
+    inv_p = _inv_dir(d_p)
+    c, n = o_p.shape[0], accel.n_blocks
+    dev = o_p.device
+    first = torch.full((c,), EMPTY_FIRST, dtype=torch.int32, device=dev)
+    last = torch.full((c,), -1, dtype=torch.int32, device=dev)
+    step = max(1, SLAB_ELEMS_BUDGET // max(c * RAY_SUBLANES * 3, 1))
+    for b0 in range(0, n, step):
+        lo, hi = accel.aabb_lo[b0:b0 + step], accel.aabb_hi[b0:b0 + step]
+        hit = slab_any_hit(lo, hi, o_p, inv_p, a_p)  # [C, group]
+        blk = torch.arange(b0, b0 + lo.shape[0], dtype=torch.int32, device=dev)
+        first = torch.minimum(first, torch.where(hit, blk, EMPTY_FIRST).amin(dim=1))
+        last = torch.maximum(last, torch.where(hit, blk, -1).amax(dim=1))
+    return first, last
+
+
+def packet_tile_words(o_p, d_p, a_p, accel: TriangleAccel, n_tiles: int,
+                      blocks_per_tile: int, granule: int):
+    """Per-(packet, tile) word of the words kernel: ``[C, n_tiles]`` int32.
+
+    Bit ``j`` of tile ``t``'s word covers the tile-local blocks ``[j *
+    granule, ... + granule)`` and is set iff some live lane passes the slab
+    test of their union box. This is the one-word case of
+    :func:`packet_tile_words_multi`, so ``granule`` must leave at most 31
+    bits per tile (the words routes use ``ceil(blocks_per_tile / 31)``).
+    """
+    if -(-blocks_per_tile // granule) > BITS_PER_WORD:
+        raise ValueError(
+            f"granule={granule}: {blocks_per_tile} blocks per tile need more "
+            f"than {BITS_PER_WORD} bits; expected granule >= "
+            f"{-(-blocks_per_tile // BITS_PER_WORD)}")
+    return packet_tile_words_multi(o_p, d_p, a_p, accel, n_tiles,
+                                   blocks_per_tile, granule)[..., 0]
 
 
 def stream_words_per_pair(blocks_per_tile: int, granule: int) -> int:

@@ -1,38 +1,52 @@
 """Triangle search dispatch: which kernel serves a search, and its preludes.
 
 Counterpart of ``raytracingc_tpu/ops/intersect_pallas.py::search_triangles_pallas``
-for the branches that are ported, with the same thresholds and knobs:
+with the same thresholds, knobs and branch order (``:1832-1918``,
+``:2155-2275``). ``T`` is the padded triangle count of the accel (``128 *
+n_blocks``); ``fits`` is ``ceil(n_blocks / 31) <= RTC_BITMASK_MAX_WORDS``;
+``streamed`` is ``T > RTC_STREAM_MAX_T`` (tiles of ``RTC_STREAM_TILE``
+triangles, the plane padded to whole tiles). Each route names the TPU kernel
+it stands for:
 
-* **brute** (``ops/search_brute.py``): ``RTC_KERNEL=brute``, or ``auto``
-  with ``n_live <= RTC_BRUTE_MAX``. Original triangle order, no accel.
-* **bitmask** (``ops/search_bitmask.py``): ``ceil(n_blocks / 31) <=
-  RTC_BITMASK_MAX_WORDS`` and ``T <= RTC_STREAM_MAX_T``.
-* **packed, resident** (``ops/search_packed.py``): more blocks than that,
-  ``T <= RTC_STREAM_MAX_T``; the whole plane is one tile.
-* **packed, streamed**: ``T > RTC_STREAM_MAX_T``; tiles of
-  ``RTC_STREAM_TILE`` triangles, the plane padded to whole tiles.
+* **brute**, K1 (``ops/search_brute.py``): ``RTC_KERNEL=brute``, or
+  ``auto`` with ``n_live <= RTC_BRUTE_MAX`` (under ``RTC_CULL=range`` too).
+  Original triangle order, no accel.
+* **bitmask**, K2 (``ops/search_bitmask.py``): ``fits``, not ``streamed``,
+  ``RTC_CULL`` not ``range``.
+* Past that, by ``RTC_STREAM_CULL`` (default ``range`` under
+  ``RTC_CULL=range``, else ``packed``): streamed, **packed** K3
+  (``ops/search_packed.py``), **words** K7 (``RTC_STREAM_ORDER=tile``) or K6
+  (``ray``) (``ops/search_words.py``), or **range** K5
+  (``ops/search_range.py``); resident and not ``fits``, packed K3 or words
+  K6 over one tile of the whole plane; any other resident case, range K4.
 
-``T`` is the padded triangle count of the accel (``128 * n_blocks``). A
-scene without an accel runs the packet kernels over :func:`trivial_accel`,
+A scene without an accel runs the packet kernels over :func:`trivial_accel`,
 as the JAX package does. Every branch gives the same result; a CUDA tensor
 launches the branch's kernel, a CPU tensor runs the same branch's plain
-version. Nothing falls back to another branch or device.
+version. Nothing falls back to another branch or device. Left out: the JAX
+package's ray slicing (``max_rays``, ``:1920-1985``), which bounds the TPU
+kernels' scalar memory and changes no result; the CUDA kernels read their
+tables from global memory.
 
 Knobs, read on every call and validated loudly (``ValueError`` on a typo or
 an out-of-range integer, ``NotImplementedError`` naming the ROADMAP item for
 a value whose kernel is not ported):
 
 * ``RTC_KERNEL``: ``auto`` (default), ``brute``, ``packet``; ``mxu`` is K8.
-* ``RTC_CULL``: ``bitmask`` (default); ``range`` is K4 (and K5).
-* ``RTC_STREAM_CULL``: ``packed`` (default); ``words`` and ``range`` are
-  K5-K7.
+* ``RTC_CULL``: ``bitmask`` (default) or ``range``.
+* ``RTC_STREAM_CULL``: ``packed``, ``words`` or ``range`` (default above).
+* ``RTC_STREAM_ORDER``: ``tile`` (default) or ``ray``: which TPU grid the
+  words route stands for (K7 or K6); both run the same CUDA kernel.
 * ``RTC_BRUTE_MAX`` (>= 0, default :data:`BRUTE_MAX_TRIS`),
   ``RTC_BITMASK_MAX_WORDS`` (>= 0, default 8), ``RTC_STREAM_MAX_T`` (>= 0,
   default 65,536), ``RTC_STREAM_TILE`` (>= 1, default 16,384),
-  ``RTC_STREAM_GRANULE`` (``auto`` or an integer in [1, blocks per tile]).
-* ``RTC_COL_GROUP`` (1, 2, 4, 8 or 16): the TPU kernels' grouped lockstep
-  walk. The CUDA kernels walk each packet on its own, so the value is
-  validated and changes nothing.
+  ``RTC_STREAM_GRANULE`` (``auto`` or an integer in [1, blocks per tile];
+  the packed route's granule, validated and ignored by the words routes,
+  whose granule is ``ceil(blocks per tile / 31)``).
+* ``RTC_COL_GROUP`` (1, 2, 4, 8 or 16) and ``RTC_EXTRACT`` (``reduce`` or
+  ``roll``): the TPU kernels' grouped lockstep walk and column extraction.
+  The CUDA kernels walk each packet on its own and address lanes directly,
+  so the values are validated and change nothing.
 
 Every default is the JAX package's value, measured on a TPU and not yet
 re-measured on a GPU.
@@ -54,6 +68,8 @@ from raytracingc_tpu_torch.ops.search_brute import (
     search_brute_reference,
 )
 from raytracingc_tpu_torch.ops.search_packed import search_packed
+from raytracingc_tpu_torch.ops.search_range import search_range
+from raytracingc_tpu_torch.ops.search_words import search_words
 from raytracingc_tpu_torch.scene.types import Triangles
 
 BRUTE_MAX_TRIS = 1536
@@ -61,22 +77,21 @@ BITMASK_MAX_WORDS = 8
 
 _NOT_PORTED = {
     ("RTC_KERNEL", "mxu"): "the MXU kernel (ROADMAP Queue 2 K8)",
-    ("RTC_CULL", "range"): "the range kernels (ROADMAP Queue 2 K4, K5)",
-    ("RTC_STREAM_CULL", "range"): "the streamed range kernel (ROADMAP Queue 2 K5)",
-    ("RTC_STREAM_CULL", "words"): "the streamed words kernels (ROADMAP Queue 2 K6, K7)",
 }
 _CHOICES = {
-    "RTC_KERNEL": ("auto", ("auto", "brute", "packet", "mxu")),
-    "RTC_CULL": ("bitmask", ("bitmask", "range")),
-    "RTC_STREAM_CULL": ("packed", ("packed", "words", "range")),
+    "RTC_KERNEL": ("auto", "brute", "packet", "mxu"),
+    "RTC_CULL": ("bitmask", "range"),
+    "RTC_STREAM_CULL": ("packed", "words", "range"),
+    "RTC_STREAM_ORDER": ("tile", "ray"),
+    "RTC_EXTRACT": ("reduce", "roll"),
+    "RTC_COL_GROUP": ("1", "2", "4", "8", "16"),
 }
 
 
-def _choice(name: str) -> str:
-    default, allowed = _CHOICES[name]
+def _choice(name: str, default: str) -> str:
     v = os.environ.get(name, default)
-    if v not in allowed:
-        raise ValueError(f"{name}={v!r}: expected one of {', '.join(allowed)}")
+    if v not in _CHOICES[name]:
+        raise ValueError(f"{name}={v!r}: expected one of {', '.join(_CHOICES[name])}")
     if (name, v) in _NOT_PORTED:
         raise NotImplementedError(
             f"{name}={v}: {_NOT_PORTED[name, v]} not ported yet")
@@ -99,6 +114,9 @@ class Knobs:
     """The dispatch knobs of one search call, validated."""
 
     kernel: str
+    cull: str
+    stream_cull: str
+    stream_order: str
     brute_max: int
     bitmask_max_words: int
     stream_max_t: int
@@ -106,15 +124,17 @@ class Knobs:
 
     @classmethod
     def read(cls) -> "Knobs":
-        kernel = _choice("RTC_KERNEL")
-        _choice("RTC_CULL")
-        _choice("RTC_STREAM_CULL")
-        group = os.environ.get("RTC_COL_GROUP", "8")
-        if group not in ("1", "2", "4", "8", "16"):
-            raise ValueError(f"RTC_COL_GROUP={group!r}: expected 1, 2, 4, 8 or 16")
+        kernel = _choice("RTC_KERNEL", "auto")
+        cull = _choice("RTC_CULL", "bitmask")
+        _choice("RTC_EXTRACT", "reduce")
+        _choice("RTC_COL_GROUP", "8")
         culling.granule_env()
         return cls(
             kernel=kernel,
+            cull=cull,
+            stream_cull=_choice("RTC_STREAM_CULL",
+                                "range" if cull == "range" else "packed"),
+            stream_order=_choice("RTC_STREAM_ORDER", "tile"),
             brute_max=_int("RTC_BRUTE_MAX", BRUTE_MAX_TRIS, 0),
             bitmask_max_words=_int("RTC_BITMASK_MAX_WORDS", BITMASK_MAX_WORDS, 0),
             stream_max_t=_int("RTC_STREAM_MAX_T", culling.STREAM_MAX_RESIDENT_T, 0),
@@ -124,11 +144,14 @@ class Knobs:
 
 @dataclasses.dataclass(frozen=True)
 class Route:
-    """Where a search goes: ``kernel`` is ``brute``, ``bitmask`` or
-    ``packed``; a packed route also has its tile (triangles), tile count
-    and granule."""
+    """Where a search goes: ``kernel`` is ``brute``, ``bitmask``,
+    ``packed``, ``words`` or ``range``, and ``tpu`` the TPU kernel of the
+    JAX package that the route stands for (``K1`` .. ``K7``). A tiled route
+    (packed, words, range) also has its tile (triangles), tile count and
+    culling granule (0 for range, which has none)."""
 
     kernel: str
+    tpu: str
     tile: int = 0
     n_tiles: int = 0
     granule: int = 0
@@ -138,17 +161,27 @@ def route(n_live: int, n_blocks: int, knobs: Knobs) -> Route:
     """The branch ``search_triangles_pallas`` takes for this scene size."""
     if knobs.kernel == "brute" or (knobs.kernel == "auto"
                                    and n_live <= knobs.brute_max):
-        return Route("brute")
+        return Route("brute", "K1")
     t = n_blocks * BLOCK
-    if t <= knobs.stream_max_t:
-        if -(-n_blocks // culling.BITS_PER_WORD) <= knobs.bitmask_max_words:
-            return Route("bitmask")
-        tile = t
-    else:
+    fits = -(-n_blocks // culling.BITS_PER_WORD) <= knobs.bitmask_max_words
+    sc = knobs.stream_cull
+    if t > knobs.stream_max_t:
         tile = min(culling.round_up(knobs.stream_tile, BLOCK), t)
-    n_tiles = -(-t // tile)
-    return Route("packed", tile, n_tiles,
-                 culling.stream_granule(tile // BLOCK, n_tiles))
+        n_tiles, bpt = -(-t // tile), tile // BLOCK
+        if sc == "packed":
+            return Route("packed", "K3", tile, n_tiles,
+                         culling.stream_granule(bpt, n_tiles))
+        if sc == "words":
+            return Route("words", "K7" if knobs.stream_order == "tile" else "K6",
+                         tile, n_tiles, -(-bpt // culling.BITS_PER_WORD))
+        return Route("range", "K5", tile, n_tiles)
+    if knobs.cull != "range" and fits:
+        return Route("bitmask", "K2")
+    if not fits and sc == "packed":
+        return Route("packed", "K3", t, 1, culling.stream_granule(n_blocks, 1))
+    if not fits and sc == "words":
+        return Route("words", "K6", t, 1, -(-n_blocks // culling.BITS_PER_WORD))
+    return Route("range", "K4", t, 1)
 
 
 def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
@@ -192,7 +225,15 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
     if way.kernel == "bitmask":
         words = culling.packet_block_masks(o_p, d_p, a_p, accel)
         return search_bitmask(o, d, words, plane, accel.orig_idx)
-    words = culling.packet_tile_words_multi(
-        o_p, d_p, a_p, accel, way.n_tiles, way.tile // BLOCK, way.granule)
     plane, orig_idx = culling.stream_tile_pad(plane, accel.orig_idx, way.tile)
-    return search_packed(o, d, words, plane, orig_idx, way.tile, way.granule)
+    bpt = way.tile // BLOCK
+    if way.kernel == "packed":
+        words = culling.packet_tile_words_multi(
+            o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
+        return search_packed(o, d, words, plane, orig_idx, way.tile, way.granule)
+    if way.kernel == "words":
+        words = culling.packet_tile_words(
+            o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
+        return search_words(o, d, words, plane, orig_idx, way.tile, way.granule)
+    first, last = culling.packet_block_ranges(o_p, d_p, a_p, accel)
+    return search_range(o, d, first, last, plane, orig_idx)

@@ -92,13 +92,14 @@ def search_bitmask_reference(o, d, words, plane, orig_idx):
     return search_blocks_reference(o, d, plane, orig_idx, table)
 
 
-def check_packet_args(o, d, words, plane, orig_idx, words_shape):
+def check_packet_args(o, d, plane, orig_idx, tables):
     """Validate the packet kernels' inputs (dtypes, shapes, contiguity,
-    one device); raise ``ValueError`` on what the kernels do not take."""
+    one device); raise ``ValueError`` on what the kernels do not take.
+    ``tables``: ``{name: (tensor, shape)}``, the int32 culling tables."""
     want = (
         ("o", o, torch.float32, (o.shape[0], 3)),
         ("d", d, torch.float32, (o.shape[0], 3)),
-        ("words", words, torch.int32, words_shape),
+        *((name, x, torch.int32, shape) for name, (x, shape) in tables.items()),
         ("plane", plane, torch.float32, (12, plane.shape[1])),
         ("orig_idx", orig_idx, torch.int32, (plane.shape[1],)),
     )
@@ -130,8 +131,8 @@ def search_bitmask(o, d, words, plane, orig_idx):
     raises.
     """
     r = o.shape[0]
-    check_packet_args(o, d, words, plane, orig_idx,
-                      (n_packets(r), words.shape[-1]))
+    check_packet_args(o, d, plane, orig_idx,
+                      {"words": (words, (n_packets(r), words.shape[-1]))})
     if o.device.type == "cpu":
         return search_bitmask_reference(o, d, words, plane, orig_idx)
     if o.device.type != "cuda":

@@ -49,11 +49,12 @@ def search_packed_reference(o, d, words, plane, orig_idx, tile: int,
     return search_blocks_reference(o, d, plane, orig_idx, table)
 
 
-def _check(o, d, words, plane, orig_idx, tile, granule):
+def check_tiled_args(o, d, words, plane, orig_idx, tile, granule):
+    """Validate the tiled kernels' inputs (``words [P, n_tiles, W]``)."""
     if words.dim() != 3:
         raise ValueError(f"words: expected [P, n_tiles, W], got {tuple(words.shape)}")
-    check_packet_args(o, d, words, plane, orig_idx,
-                      (n_packets(o.shape[0]), *words.shape[1:]))
+    check_packet_args(o, d, plane, orig_idx,
+                      {"words": (words, (n_packets(o.shape[0]), *words.shape[1:]))})
     if tile < BLOCK or tile % BLOCK or plane.shape[1] != words.shape[1] * tile:
         raise ValueError(
             f"tile={tile}: expected a multiple of {BLOCK} with plane width "
@@ -74,7 +75,7 @@ def search_packed(o, d, words, plane, orig_idx, tile: int, granule: int):
     and counts the launch in ``search_packed.launches``; any other device
     raises.
     """
-    _check(o, d, words, plane, orig_idx, tile, granule)
+    check_tiled_args(o, d, words, plane, orig_idx, tile, granule)
     if o.device.type == "cpu":
         return search_packed_reference(o, d, words, plane, orig_idx, tile,
                                        granule)

@@ -93,7 +93,7 @@ def test_unported_flags_raise(flags, tmp_path):
     "env,exc",
     [
         ({"RTC_KERNEL": "bitmask"}, ValueError),
-        ({"RTC_CULL": "range"}, NotImplementedError),
+        ({"RTC_EXTRACT": "rolll"}, ValueError),
         ({"RTC_KERNEL": "mxu"}, NotImplementedError),
         ({"RTC_BRUTE_MAX": "lots"}, ValueError),
         ({"RTC_BRUTE_MAX": "-1"}, ValueError),

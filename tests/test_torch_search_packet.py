@@ -36,7 +36,8 @@ from test_torch_accel import port_tris, soup
 BOX_SCENE = os.path.join(os.path.dirname(__file__), "..", "examples", "box_scene.txt")
 KNOBS = ("RTC_KERNEL", "RTC_CULL", "RTC_STREAM_CULL", "RTC_BRUTE_MAX",
          "RTC_BITMASK_MAX_WORDS", "RTC_STREAM_MAX_T", "RTC_STREAM_TILE",
-         "RTC_STREAM_GRANULE", "RTC_COL_GROUP", "RTC_RESOLVE")
+         "RTC_STREAM_GRANULE", "RTC_COL_GROUP", "RTC_RESOLVE",
+         "RTC_STREAM_ORDER", "RTC_EXTRACT")
 
 
 @pytest.fixture(autouse=True)
@@ -246,9 +247,9 @@ def test_routing_table(spies, monkeypatch):
     "env,exc",
     [
         ({"RTC_KERNEL": "mxu"}, NotImplementedError),
-        ({"RTC_CULL": "range"}, NotImplementedError),
-        ({"RTC_STREAM_CULL": "words"}, NotImplementedError),
-        ({"RTC_STREAM_CULL": "range"}, NotImplementedError),
+        ({"RTC_STREAM_ORDER": "tiles"}, ValueError),
+        ({"RTC_EXTRACT": "rolll"}, ValueError),
+        ({"RTC_STREAM_ORDER": "ray-major"}, ValueError),
         ({"RTC_KERNEL": "bitmask"}, ValueError),
         ({"RTC_CULL": "bitmsk"}, ValueError),
         ({"RTC_STREAM_CULL": "pack"}, ValueError),
