@@ -34,9 +34,10 @@ CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 # the optional ones are None on a trivial accel.
 ACCEL_FIELDS = {
     "orig_idx": np.int32, "aabb_lo": np.float32, "aabb_hi": np.float32,
-    "perm_of_orig": np.int32, "packed_plane": np.float32,
+    "mxu_coeffs": np.float32, "perm_of_orig": np.int32,
+    "packed_plane": np.float32,
 }
-_OPTIONAL_ACCEL_FIELDS = ("perm_of_orig", "packed_plane")
+_OPTIONAL_ACCEL_FIELDS = ("mxu_coeffs", "perm_of_orig", "packed_plane")
 
 
 def _build(cls, fields: tuple[str, ...], arrays: Mapping[str, np.ndarray], device):
@@ -62,8 +63,7 @@ def accel_arrays(accel) -> dict:
 
 
 def accel_from_numpy(arrays: Mapping, device="cpu") -> TriangleAccel:
-    """Build a port ``TriangleAccel`` from the JAX accel's fields, as numpy
-    (``mxu_coeffs`` is not carried: the MXU kernel is not ported)."""
+    """Build a port ``TriangleAccel`` from the JAX accel's fields, as numpy."""
     missing = {"triangles", *ACCEL_FIELDS} - set(arrays)
     if missing:
         raise KeyError(f"TriangleAccel: missing fields {sorted(missing)}")

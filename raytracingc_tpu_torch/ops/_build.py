@@ -46,6 +46,10 @@ _SIGNATURES = {
     "rtc_search_packed": ([_VOID_P] * 5 + [_INT] * 5 + [_VOID_P] * 3, _INT),
     "rtc_search_range": ([_VOID_P] * 6 + [_INT] * 2 + [_VOID_P] * 3, _INT),
     "rtc_search_words": ([_VOID_P] * 5 + [_INT] * 4 + [_VOID_P] * 3, _INT),
+    "rtc_search_mxu": ([_VOID_P] * 7 + [_INT] * 4 + [_VOID_P] * 3, _INT),
+    "rtc_search_union": ([_VOID_P] * 6 + [_INT] * 3 + [_VOID_P] * 3, _INT),
+    "rtc_smem_probe": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] * 2, _INT),
+    "rtc_smem_optin": ([_INT, _VOID_P], _INT),
     "rtc_error_string": ([_INT], ctypes.c_char_p),
 }
 
@@ -133,8 +137,16 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+class CudaError(RuntimeError):
+    """A C entry point returned a non-zero ``cudaError_t`` (``code``)."""
+
+    def __init__(self, what: str, code: int, msg: str):
+        super().__init__(f"{what}: CUDA error {code} ({msg})")
+        self.code = code
+
+
 def check(code: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    """Raise :class:`CudaError` if a C entry point returned a non-zero
+    ``cudaError_t``."""
     if code != 0:
-        msg = load_library().rtc_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise CudaError(what, code, load_library().rtc_error_string(code).decode())

@@ -39,16 +39,17 @@ class TriangleAccel:
     ``perm_of_orig [T]`` int32: original index → permuted slot (the resolve's
     locality-sorted gather). ``packed_plane [12, T]`` f32: rows A, AB, AC, N
     of the permuted triangles, the packet kernels' triangle input.
-    ``mxu_coeffs`` stays ``None``: it feeds only the MXU kernel, which is not
-    ported (ROADMAP Queue 2 K8). A trivial accel has no ``perm_of_orig`` and
-    no ``packed_plane``.
+    ``mxu_coeffs [6T, 16]`` f32: the MXU kernel's coefficient table
+    (``ops/intersect_mxu.py::pack_coeffs_mxu``), packed once per scene when
+    ``T <= MXU_MAX_TRIS`` (past that the kernel does not run). A trivial
+    accel has none of the three; the MXU search packs its table per call.
     """
 
     triangles: Triangles
     orig_idx: torch.Tensor
     aabb_lo: torch.Tensor
     aabb_hi: torch.Tensor
-    mxu_coeffs: None = None
+    mxu_coeffs: torch.Tensor | None = None
     perm_of_orig: torch.Tensor | None = None
     packed_plane: torch.Tensor | None = None
 
@@ -64,6 +65,7 @@ class TriangleAccel:
             orig_idx=self.orig_idx.to(device),
             aabb_lo=self.aabb_lo.to(device),
             aabb_hi=self.aabb_hi.to(device),
+            mxu_coeffs=move(self.mxu_coeffs),
             perm_of_orig=move(self.perm_of_orig),
             packed_plane=move(self.packed_plane),
         )
@@ -125,15 +127,24 @@ def build_accel(tris: Triangles, n_live: int) -> TriangleAccel:
         [pa.T, (pb - pa).T, (pc - pa).T, host["normal"][perm].T], axis=0
     ).astype(np.float32)
 
+    # The MXU table is packed on the host, so its bits do not depend on the
+    # device; only for scenes the MXU kernel accepts (384 B per triangle).
+    from raytracingc_tpu_torch.ops.intersect_mxu import MXU_MAX_TRIS, pack_coeffs_mxu
+
+    host_t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    permuted = Triangles(**{k: host_t(v[perm]) for k, v in host.items()})
+    coeffs = (pack_coeffs_mxu(permuted, host_t(orig)) if t <= MXU_MAX_TRIS
+              else None)
     dev = tris.a.device
-    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    put = lambda x: None if x is None else x.to(dev)
     return TriangleAccel(
-        triangles=Triangles(**{k: put(v[perm]) for k, v in host.items()}),
-        orig_idx=put(orig),
-        aabb_lo=put(lo_blocks),
-        aabb_hi=put(hi_blocks),
-        perm_of_orig=put(inv),
-        packed_plane=put(plane),
+        triangles=permuted.to(dev),
+        orig_idx=put(host_t(orig)),
+        aabb_lo=put(host_t(lo_blocks)),
+        aabb_hi=put(host_t(hi_blocks)),
+        mxu_coeffs=put(coeffs),
+        perm_of_orig=put(host_t(inv)),
+        packed_plane=put(host_t(plane)),
     )
 
 

@@ -4,7 +4,8 @@ Counterpart of the XLA-side preludes in
 ``raytracingc_tpu/ops/intersect_pallas.py`` (``_slab_any_hit``,
 ``packet_block_masks``, ``packet_block_ranges``, ``packet_tile_words``,
 ``packet_tile_words_multi``, ``stream_words_per_pair``, ``_stream_granule``,
-``_stream_tile_pad``), as plain PyTorch ops on the rays' device. Rays are
+``_stream_tile_pad``, and the MXU launcher's per-program OR of the packet
+words), as plain PyTorch ops on the rays' device. Rays are
 grouped in packets of :data:`RAY_SUBLANES` (ray ``r`` is in packet
 ``r // 8``); a bit is set (or a block falls inside a packet's span) iff
 some live lane of the packet passes the slab test of a block's (or a
@@ -39,8 +40,10 @@ STREAM_MAX_RESIDENT_T = 65536
 # and the blocks tested, are the same); the CUDA kernels read the words from
 # global memory and need no such budget.
 SMEM_WORDS_BUDGET = 196608
-# The TPU kernel's rays per grid program (8 x 128), read by stream_granule.
-_RAYS_PER_PROGRAM = RAY_SUBLANES * 128
+# Packets per program: the TPU kernels' grid step of 8 x 128 rays, read by
+# stream_granule, and the MXU and union-walk kernels' culling unit.
+PACKETS_PER_PROGRAM = 128
+RAYS_PER_PROGRAM = RAY_SUBLANES * PACKETS_PER_PROGRAM
 # Float32 elements per slab-test temporary (64 MiB).
 SLAB_ELEMS_BUDGET = 1 << 24
 _BOX_BIG = 3.0e38  # padding box bound: an inverted box, masked as invalid
@@ -129,6 +132,25 @@ def packet_block_masks(o_p, d_p, a_p, accel: TriangleAccel):
                         n_words * BITS_PER_WORD, 0)
     return _box_words(lo.reshape(n_words, BITS_PER_WORD, 3),
                       hi.reshape(n_words, BITS_PER_WORD, 3), o_p, d_p, a_p)
+
+
+def program_union_words(o_p, d_p, a_p, accel: TriangleAccel):
+    """Per-program union words of the MXU and union-walk kernels:
+    ``(words [G, n_words], flags [G])`` int32, ``G = ceil(P / 128)``.
+
+    ``words[g]`` is the bitwise OR of :func:`packet_block_masks` over the
+    128 packets (1,024 rays) of program ``g``, the missing packets of the
+    last program counting as dead; ``flags[g]`` is 1 iff a word is nonzero.
+    """
+    masks = packet_block_masks(o_p, d_p, a_p, accel)
+    pad = round_up(masks.shape[0], PACKETS_PER_PROGRAM) - masks.shape[0]
+    words = torch.nn.functional.pad(masks, (0, 0, 0, pad)).reshape(
+        -1, PACKETS_PER_PROGRAM, masks.shape[1])
+    while words.shape[1] > 1:  # an OR tree over the packets
+        half = words.shape[1] // 2
+        words = words[:, :half] | words[:, half:]
+    words = words[:, 0].contiguous()
+    return words, (words != 0).any(dim=1).to(torch.int32)
 
 
 def packet_block_ranges(o_p, d_p, a_p, accel: TriangleAccel):
@@ -247,7 +269,7 @@ def stream_granule(blocks_per_tile: int, n_tiles: int) -> int:
     for g in range(1, g0):
         per_col = n_tiles * (stream_words_per_pair(blocks_per_tile, g) + 1)
         rays = ((RAY_SUBLANES * SMEM_WORDS_BUDGET // per_col)
-                // _RAYS_PER_PROGRAM * _RAYS_PER_PROGRAM)
+                // RAYS_PER_PROGRAM * RAYS_PER_PROGRAM)
         if rays >= 4096:
             return g
     return g0

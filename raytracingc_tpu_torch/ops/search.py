@@ -2,15 +2,20 @@
 
 Counterpart of ``raytracingc_tpu/ops/intersect_pallas.py::search_triangles_pallas``
 with the same thresholds, knobs and branch order (``:1832-1918``,
-``:2155-2275``). ``T`` is the padded triangle count of the accel (``128 *
-n_blocks``); ``fits`` is ``ceil(n_blocks / 31) <= RTC_BITMASK_MAX_WORDS``;
-``streamed`` is ``T > RTC_STREAM_MAX_T`` (tiles of ``RTC_STREAM_TILE``
-triangles, the plane padded to whole tiles). Each route names the TPU kernel
-it stands for:
+``:2051-2098``, ``:2155-2275``). ``T`` is the padded triangle count of the
+accel (``128 * n_blocks``); ``fits`` is ``ceil(n_blocks / 31) <=
+RTC_BITMASK_MAX_WORDS``; ``streamed`` is ``T > RTC_STREAM_MAX_T`` (tiles of
+``RTC_STREAM_TILE`` triangles, the plane padded to whole tiles). Each route
+names the TPU kernel it stands for:
 
 * **brute**, K1 (``ops/search_brute.py``): ``RTC_KERNEL=brute``, or
   ``auto`` with ``n_live <= RTC_BRUTE_MAX`` (under ``RTC_CULL=range`` too).
   Original triangle order, no accel.
+* **mxu**, K8 (``ops/intersect_mxu.py``): ``RTC_KERNEL=mxu``, whatever
+  ``n_live``, while ``T <= MXU_MAX_TRIS`` (8,192) and ``ceil(n_blocks /
+  31) <= 8``; past that the search prints the JAX package's notice on
+  stderr and takes the ``packet`` routes below. Culls per 1,024-ray
+  program (``culling.program_union_words``); dead lanes report misses.
 * **bitmask**, K2 (``ops/search_bitmask.py``): ``fits``, not ``streamed``,
   ``RTC_CULL`` not ``range``.
 * Past that, by ``RTC_STREAM_CULL`` (default ``range`` under
@@ -21,18 +26,21 @@ it stands for:
   K6 over one tile of the whole plane; any other resident case, range K4.
 
 A scene without an accel runs the packet kernels over :func:`trivial_accel`,
-as the JAX package does. Every branch gives the same result; a CUDA tensor
-launches the branch's kernel, a CPU tensor runs the same branch's plain
-version. Nothing falls back to another branch or device. Left out: the JAX
-package's ray slicing (``max_rays``, ``:1920-1985``), which bounds the TPU
-kernels' scalar memory and changes no result; the CUDA kernels read their
-tables from global memory.
+as the JAX package does (the mxu route packs its coefficient table per
+call). Every branch but mxu gives the same result bit for bit; mxu agrees
+within its contract (``ops/intersect_mxu.py``). A CUDA tensor launches the
+branch's kernel, a CPU tensor runs the same branch's plain version. Nothing
+falls back to another branch or device. Left out: the JAX package's ray
+slicing (``max_rays``, ``:1920-1985``), which bounds the TPU kernels' scalar
+memory and changes no result; the CUDA kernels read their tables from
+global memory.
 
 Knobs, read on every call and validated loudly (``ValueError`` on a typo or
-an out-of-range integer, ``NotImplementedError`` naming the ROADMAP item for
-a value whose kernel is not ported):
+an out-of-range integer):
 
-* ``RTC_KERNEL``: ``auto`` (default), ``brute``, ``packet``; ``mxu`` is K8.
+* ``RTC_KERNEL``: ``auto`` (default), ``brute``, ``packet`` or ``mxu``.
+* ``RTC_MXU_PRECISION``: ``split3`` (default) or ``highest``, the mxu
+  route's product precision.
 * ``RTC_CULL``: ``bitmask`` (default) or ``range``.
 * ``RTC_STREAM_CULL``: ``packed``, ``words`` or ``range`` (default above).
 * ``RTC_STREAM_ORDER``: ``tile`` (default) or ``ray``: which TPU grid the
@@ -56,11 +64,18 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 
 import torch
 
 from raytracingc_tpu_torch.ops import culling
 from raytracingc_tpu_torch.ops.accel import BLOCK, TriangleAccel, trivial_accel
+from raytracingc_tpu_torch.ops.intersect_mxu import (
+    MXU_MAX_TRIS,
+    PRECISIONS,
+    pack_coeffs_mxu,
+    search_mxu,
+)
 from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
 from raytracingc_tpu_torch.ops.search_brute import (
     pack_triangles,
@@ -74,12 +89,11 @@ from raytracingc_tpu_torch.scene.types import Triangles
 
 BRUTE_MAX_TRIS = 1536
 BITMASK_MAX_WORDS = 8
+MXU_MAX_WORDS = 8  # the JAX kernel's unrolled union-word walks
 
-_NOT_PORTED = {
-    ("RTC_KERNEL", "mxu"): "the MXU kernel (ROADMAP Queue 2 K8)",
-}
 _CHOICES = {
     "RTC_KERNEL": ("auto", "brute", "packet", "mxu"),
+    "RTC_MXU_PRECISION": PRECISIONS,
     "RTC_CULL": ("bitmask", "range"),
     "RTC_STREAM_CULL": ("packed", "words", "range"),
     "RTC_STREAM_ORDER": ("tile", "ray"),
@@ -92,9 +106,6 @@ def _choice(name: str, default: str) -> str:
     v = os.environ.get(name, default)
     if v not in _CHOICES[name]:
         raise ValueError(f"{name}={v!r}: expected one of {', '.join(_CHOICES[name])}")
-    if (name, v) in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}={v}: {_NOT_PORTED[name, v]} not ported yet")
     return v
 
 
@@ -117,6 +128,7 @@ class Knobs:
     cull: str
     stream_cull: str
     stream_order: str
+    mxu_precision: str
     brute_max: int
     bitmask_max_words: int
     stream_max_t: int
@@ -135,6 +147,7 @@ class Knobs:
             stream_cull=_choice("RTC_STREAM_CULL",
                                 "range" if cull == "range" else "packed"),
             stream_order=_choice("RTC_STREAM_ORDER", "tile"),
+            mxu_precision=_choice("RTC_MXU_PRECISION", "split3"),
             brute_max=_int("RTC_BRUTE_MAX", BRUTE_MAX_TRIS, 0),
             bitmask_max_words=_int("RTC_BITMASK_MAX_WORDS", BITMASK_MAX_WORDS, 0),
             stream_max_t=_int("RTC_STREAM_MAX_T", culling.STREAM_MAX_RESIDENT_T, 0),
@@ -144,9 +157,9 @@ class Knobs:
 
 @dataclasses.dataclass(frozen=True)
 class Route:
-    """Where a search goes: ``kernel`` is ``brute``, ``bitmask``,
+    """Where a search goes: ``kernel`` is ``brute``, ``mxu``, ``bitmask``,
     ``packed``, ``words`` or ``range``, and ``tpu`` the TPU kernel of the
-    JAX package that the route stands for (``K1`` .. ``K7``). A tiled route
+    JAX package that the route stands for (``K1`` .. ``K8``). A tiled route
     (packed, words, range) also has its tile (triangles), tile count and
     culling granule (0 for range, which has none)."""
 
@@ -157,11 +170,19 @@ class Route:
     granule: int = 0
 
 
+def mxu_fits(n_blocks: int) -> bool:
+    """Whether the mxu route takes a scene of ``n_blocks`` blocks."""
+    return (n_blocks * BLOCK <= MXU_MAX_TRIS
+            and -(-n_blocks // culling.BITS_PER_WORD) <= MXU_MAX_WORDS)
+
+
 def route(n_live: int, n_blocks: int, knobs: Knobs) -> Route:
     """The branch ``search_triangles_pallas`` takes for this scene size."""
     if knobs.kernel == "brute" or (knobs.kernel == "auto"
                                    and n_live <= knobs.brute_max):
         return Route("brute", "K1")
+    if knobs.kernel == "mxu" and mxu_fits(n_blocks):
+        return Route("mxu", "K8")
     t = n_blocks * BLOCK
     fits = -(-n_blocks // culling.BITS_PER_WORD) <= knobs.bitmask_max_words
     sc = knobs.stream_cull
@@ -194,7 +215,7 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
     either device; the name is the JAX package's, kept for the CLI's A/B
     flag) or ``"pallas"`` (the CUDA kernels; raises on the CPU).
 
-    ``alive``: optional bool ``[R]``. The brute route reports
+    ``alive``: optional bool ``[R]``. The brute and mxu routes report
     ``(MISS_DST, -1)`` for dead lanes. The packet routes build their culling
     bits from live lanes only and do not mask: a dead lane in a packet with
     a live lane gets its real hit, a packet of dead lanes misses (as in the
@@ -215,8 +236,21 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
     way = route(n_live, accel.n_blocks, knobs)
     if way.kernel == "brute":
         return search_brute(o, d, pack_triangles(tris, n_live), n_live, alive)
+    if knobs.kernel == "mxu" and way.kernel != "mxu":
+        # The JAX package's own routing rule, printed so that an A/B run
+        # never times another kernel unknowingly.
+        print(f"raytracingc_tpu_torch: RTC_KERNEL=mxu unsupported at "
+              f"{accel.n_blocks * BLOCK} padded triangles (cap {MXU_MAX_TRIS}); "
+              "falling back to the packet kernel", file=sys.stderr)
 
     o_p, d_p, a_p = culling.packets(o, d, alive)
+    if way.kernel == "mxu":
+        words, flags = culling.program_union_words(o_p, d_p, a_p, accel)
+        coeffs = accel.mxu_coeffs
+        if coeffs is None:
+            coeffs = pack_coeffs_mxu(accel.triangles, accel.orig_idx)
+        return search_mxu(o, d, words, flags, coeffs, accel.orig_idx,
+                          knobs.mxu_precision, alive)
     plane = accel.packed_plane
     if plane is None:
         t = accel.triangles

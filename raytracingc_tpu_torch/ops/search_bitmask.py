@@ -65,16 +65,21 @@ def search_blocks_reference(o, d, plane, orig_idx, tested, chunk=PAIR_CHUNK):
         dmin = dst.amin(dim=2)  # [n, 8]
         imin = torch.where(dst == dmin[:, :, None], oi, big).amin(dim=2)
         rid = (p[:, None] * RAY_SUBLANES + lanes).reshape(-1)
-        dmin, imin = dmin.reshape(-1), imin.reshape(-1)
-        # Lex-merge into the running best: the new minimum distance first,
-        # then the lowest index among the entries that reach it.
-        new_d = best_d.scatter_reduce(0, rid, dmin, "amin")
-        cand = torch.where(dmin == new_d[rid], imin, big)
-        keep = torch.where(best_d == new_d, best_i, big)
-        best_i = keep.scatter_reduce(0, rid, cand, "amin")
-        best_d = new_d
+        best_d, best_i = lex_merge(best_d, best_i, rid, dmin.reshape(-1),
+                                   imin.reshape(-1), big)
     best_d, best_i = best_d[:r], best_i[:r]
     return best_d, torch.where(best_d < MISS_DST, best_i, -1)
+
+
+def lex_merge(best_d, best_i, rid, dmin, imin, big):
+    """Merge candidates ``(dmin, imin)`` of rays ``rid`` (repeats allowed)
+    into the running best: the new minimum distance first, then the lowest
+    index among the entries that reach it. ``big`` is the int32 index that
+    loses every tie."""
+    new_d = best_d.scatter_reduce(0, rid, dmin, "amin")
+    cand = torch.where(dmin == new_d[rid], imin, big)
+    keep = torch.where(best_d == new_d, best_i, big)
+    return new_d, keep.scatter_reduce(0, rid, cand, "amin")
 
 
 def bitmask_table(words, n_blocks: int):

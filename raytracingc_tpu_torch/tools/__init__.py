@@ -1,0 +1,22 @@
+"""Measurement tools of the port, each run as ``python -m
+raytracingc_tpu_torch.tools.<name>``: ``union_walk_ab`` (K9, program-level
+union culling against the production search) and ``smem_probe`` (K10, the
+largest shared-memory table a kernel can hold). Importing one runs nothing.
+"""
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the current CUDA stream, by
+    CUDA events over ``iters`` calls after up to 3 warm-up calls."""
+    import torch
+
+    for _ in range(min(3, iters)):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters

@@ -3,7 +3,12 @@
 ``build_accel``, ``trivial_accel``, the slab-test words of the bitmask and
 packed kernels and the culling granule are integer (or copied float) results
 of the same numpy or elementwise op sequences in both packages, so they must
-be EQUAL bit for bit.
+be EQUAL bit for bit. The one exception is the MXU coefficient table
+``mxu_coeffs``: XLA:CPU contracts its cross products into FMA and the port
+does not (ROADMAP Queue 3 P1), so each table is held bit for bit to its own
+arithmetic, recomputed in numpy, and the two tables to each other within a
+few ulps of each entry's largest product term
+(:func:`assert_mxu_table_matches`).
 """
 
 import os
@@ -45,6 +50,99 @@ def port_tris(jtris):
                         for f in bridge.TRIANGLE_FIELDS})
 
 
+def _fma(a, b, c):
+    """float32 fma(a, b, c), exact in float64 before the one rounding."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _cross(x, y, contract):
+    """``x × y`` in float32, each component ``x1 y2 - x2 y1`` rounded term
+    by term, or as XLA:CPU contracts it: ``fma(x1, y2, -(x2 y1))``."""
+    i, j = [1, 2, 0], [2, 0, 1]
+    if contract:
+        return _fma(x[:, i], y[:, j], -(x[:, j] * y[:, i]))
+    return x[:, i] * y[:, j] - x[:, j] * y[:, i]
+
+
+def mxu_table_numpy(a, b, c, normal, orig_idx, contract: bool):
+    """``pack_coeffs_mxu`` in numpy float32, without contraction (the
+    port's arithmetic) or with XLA:CPU's (its cross products as fmas; the
+    sums stay term by term)."""
+    ab, ac = b - a, c - a
+    ng = _cross(ab, ac, contract)
+    t = a.shape[0]
+    z = lambda k: np.zeros((t, k), np.float32)
+    rows = lambda c0, o3, d3, m6: np.concatenate([c0, o3, d3, m6, z(3)], 1)
+    mono = lambda x: np.stack(
+        [x[:, 2], -x[:, 1], -x[:, 2], x[:, 0], x[:, 1], -x[:, 0]], 1)
+    a_ng = (a[:, 0] * ng[:, 0] + a[:, 1] * ng[:, 1]) + a[:, 2] * ng[:, 2]
+    quant = np.stack([
+        rows(z(1), z(3), _cross(ac, ab, contract), z(6)),
+        rows(z(1), z(3), normal, z(6)),
+        rows(z(1), z(3), _cross(a, ac, contract), mono(ac)),
+        rows(z(1), z(3), _cross(ab, a, contract), -mono(ab)),
+        rows(-a_ng[:, None], ng, z(3), z(6)),
+        rows(np.minimum(orig_idx, 2**30).astype(np.float32)[:, None],
+             z(3), z(3), z(6)),
+    ])
+    return quant.reshape(6, t // 128, 128, 16).transpose(1, 0, 2, 3).reshape(-1, 16)
+
+
+def mxu_term_scale(a, b, c, normal):
+    """For each entry of ``pack_coeffs_mxu``'s table, the magnitude of the
+    largest product term that it sums (float64): ``max(|x1 y2|, |x2 y1|)``
+    for a cross-product component, ``max_i |a_i| N_i`` for ``a . ng`` (N_i
+    the scale of ``ng_i``), the entry itself where it is copied."""
+    a, b, c, normal = (x.astype(np.float64) for x in (a, b, c, normal))
+    ab, ac = b - a, c - a
+    i, j = [1, 2, 0], [2, 0, 1]
+    cross = lambda x, y: np.maximum(np.abs(x[:, i] * y[:, j]),
+                                    np.abs(x[:, j] * y[:, i]))
+    t = a.shape[0]
+    z = lambda k: np.zeros((t, k))
+    rows = lambda c0, o3, d3, m6: np.concatenate([c0, o3, d3, m6, z(3)], 1)
+    mono = lambda x: np.abs(x[:, [2, 1, 2, 0, 1, 0]])
+    ng = cross(ab, ac)
+    quant = np.stack([
+        rows(z(1), z(3), cross(ac, ab), z(6)),
+        rows(z(1), z(3), np.abs(normal), z(6)),
+        rows(z(1), z(3), cross(a, ac), mono(ac)),
+        rows(z(1), z(3), cross(ab, a), mono(ab)),
+        rows((np.abs(a) * ng).max(1)[:, None], ng, z(3), z(6)),
+        rows(z(1), z(3), z(3), z(6)),
+    ])
+    return quant.reshape(6, t // 128, 128, 16).transpose(1, 0, 2, 3).reshape(-1, 16)
+
+
+# The port's and JAX's tables, in ulps of each entry's largest product term:
+# a cross-product component differs by one rounding of a product and the
+# two final roundings (<= 2.5; 2 seen), a . ng by the three ng components'
+# gaps times |a_i| and the sums' roundings (<= 16; 6 seen).
+MXU_TABLE_ULPS = 3
+MXU_TABLE_ULPS_T0 = 16
+
+
+def assert_mxu_table_matches(port_table, jax_accel):
+    """The port's table is its arithmetic bit for bit, JAX's is XLA's
+    contracted arithmetic bit for bit: the two differ only by the FMA, by a
+    few ulps of each entry's largest product term."""
+    tri = jax_accel.triangles
+    args = [np.asarray(x) for x in (tri.a, tri.b, tri.c, tri.normal,
+                                    jax_accel.orig_idx)]
+    jax_table = np.asarray(jax_accel.mxu_coeffs)
+    for table, contract in ((port_table, False), (jax_table, True)):
+        np.testing.assert_array_equal(
+            np.asarray(table).view(np.int32),
+            mxu_table_numpy(*args, contract).view(np.int32))
+    gap = np.abs(np.asarray(port_table, np.float64) - jax_table)
+    ulp = np.spacing(mxu_term_scale(*args[:4]).astype(np.float32)).astype(np.float64)
+    limit = np.full((gap.shape[0] // 128, 128, 16), float(MXU_TABLE_ULPS))
+    limit[4::6, :, 0] = MXU_TABLE_ULPS_T0  # the t' row's constant, -a . ng
+    assert (gap <= limit.reshape(gap.shape) * ulp).all(), (
+        f"port vs JAX table: {float((gap / ulp).max())} ulps of the largest term")
+
+
 def assert_accels_equal(port, jax_accel):
     want = bridge.accel_arrays(jax_accel)
     for f in bridge.TRIANGLE_FIELDS:
@@ -56,6 +154,9 @@ def assert_accels_equal(port, jax_accel):
             assert got is None, f
             continue
         assert got.numpy().dtype == want[f].dtype, f
+        if f == "mxu_coeffs" and not np.array_equal(got.numpy(), want[f]):
+            assert_mxu_table_matches(got.numpy(), jax_accel)
+            continue
         np.testing.assert_array_equal(got.numpy(), want[f], err_msg=f)
 
 
@@ -81,7 +182,8 @@ def test_build_accel_matches_jax(case):
     pa = build_accel(port_tris(jtris), n)
     assert_accels_equal(pa, ja)
     t = jtris.a.shape[0]
-    assert pa.n_blocks == t // 128 and pa.mxu_coeffs is None
+    assert pa.n_blocks == t // 128 and pa.mxu_coeffs.shape == (6 * t, 16)
+    assert_mxu_table_matches(pa.mxu_coeffs.numpy(), ja)
     # The inverse permutation really inverts orig_idx on live slots.
     live = pa.orig_idx[:n].long()
     assert torch.equal(pa.perm_of_orig[live], torch.arange(n, dtype=torch.int32))
@@ -101,6 +203,7 @@ def test_accel_moves_and_follows_triangles():
     moved = ts.to("meta")
     assert moved.accel.orig_idx.device.type == "meta"
     assert moved.accel.packed_plane.device.type == "meta"
+    assert moved.accel.mxu_coeffs.device.type == "meta"
     tt, n = tb.tessellate(ts.triangles, ts.n_triangles, levels=2)
     dropped = ts.with_triangles(tt)
     assert dropped.accel is None and dropped.n_triangles == tt.count

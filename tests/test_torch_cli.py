@@ -94,7 +94,7 @@ def test_unported_flags_raise(flags, tmp_path):
     [
         ({"RTC_KERNEL": "bitmask"}, ValueError),
         ({"RTC_EXTRACT": "rolll"}, ValueError),
-        ({"RTC_KERNEL": "mxu"}, NotImplementedError),
+        ({"RTC_MXU_PRECISION": "bf16"}, ValueError),
         ({"RTC_BRUTE_MAX": "lots"}, ValueError),
         ({"RTC_BRUTE_MAX": "-1"}, ValueError),
     ],

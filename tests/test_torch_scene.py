@@ -8,6 +8,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from raytracingc_tpu.scene import builder as jb
 from raytracingc_tpu.scene.obj_loader import load_obj as j_load_obj
@@ -147,6 +148,16 @@ def test_bridge_round_trip():
     _assert_scene_equal(ts, jnp_scene)
     # The port's own builder gives the same scene as the bridged one.
     _assert_scene_equal(tb.scene_from_triangles_txt(BOX_SCENE), jnp_scene)
+    # The JAX scene's accel crosses with its MXU coefficient table, bit for
+    # bit, and the port's own accel of the same scene packs the same table
+    # (box_scene's coordinates round alike with or without FMA).
+    assert js.accel is not None and js.accel.mxu_coeffs is not None
+    ta = bridge.accel_from_numpy(bridge.accel_arrays(js.accel))
+    want = np.asarray(js.accel.mxu_coeffs)
+    assert ta.mxu_coeffs.dtype == torch.float32 and ta.mxu_coeffs.shape == (768, 16)
+    np.testing.assert_array_equal(ta.mxu_coeffs.numpy(), want)
+    np.testing.assert_array_equal(
+        tb.scene_from_triangles_txt(BOX_SCENE).accel.mxu_coeffs.numpy(), want)
     with pytest.raises(KeyError):
         bridge.scene_from_numpy({}, jnp_scene["spheres"], jnp_scene["env"], 1, 1)
     with pytest.raises(ValueError):

@@ -224,9 +224,17 @@ def test_search_backends_agree_and_validate(monkeypatch):
     monkeypatch.setenv("RTC_KERNEL", "packet")
     packet = nearest_hit(o, d, ts)
     assert torch.equal(packet.idx, plain.idx)
+    # The MXU route's plain version gives the brute scan's winners, in both
+    # precisions (none of these rays lies at a validity boundary, where the
+    # contract would allow a flip).
     monkeypatch.setenv("RTC_KERNEL", "mxu")
-    with pytest.raises(NotImplementedError, match="K8"):
-        nearest_hit(o, d, ts)
+    for prec in ("split3", "highest"):
+        monkeypatch.setenv("RTC_MXU_PRECISION", prec)
+        mxu = nearest_hit(o, d, ts)
+        for f in ("hit", "is_tri", "idx"):
+            assert torch.equal(getattr(mxu, f), getattr(plain, f)), (prec, f)
+    assert (plain.hit & plain.is_tri).sum() > 100
+    monkeypatch.delenv("RTC_MXU_PRECISION")
     monkeypatch.setenv("RTC_KERNEL", "brutte")
     with pytest.raises(ValueError):
         nearest_hit(o, d, ts)

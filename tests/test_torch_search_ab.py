@@ -1,4 +1,5 @@
-"""Port parity: the A/B culling routes, range (K4, K5) and words (K6, K7).
+"""Port parity: the A/B culling routes, range (K4, K5) and words (K6, K7),
+and the dispatch of every route (K1-K8).
 
 The port's dispatch (``ops/search.py``) on CPU tensors runs each kernel's
 plain version (``ops/search_range.py``, ``ops/search_words.py``); it is held
@@ -11,8 +12,8 @@ triangles as the port's brute scan. On a scene of duplicated triangles,
 whose exact distance ties cross tiles, every route picks the lowest original
 index, as the C-order scan does. The port's ``route()`` names the kernel the
 JAX package launches over the whole matrix of cull knobs and scene sizes,
-and CPU renders through every A/B route equal the default route's bit for
-bit.
+``RTC_KERNEL=mxu`` included, and CPU renders through every A/B route equal
+the default route's bit for bit.
 """
 
 import contextlib
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import raytracingc_tpu.ops.intersect_mxu as jm
 import raytracingc_tpu.ops.intersect_pallas as ip
 from raytracingc_tpu.ops.accel import build_accel as j_build_accel
 from raytracingc_tpu.ops.intersect import _search_triangles_xla
@@ -42,7 +44,7 @@ from test_torch_search_packet import KNOBS, rays_at
 BOX_SCENE = os.path.join(os.path.dirname(__file__), "..", "examples", "box_scene.txt")
 TINY_STREAM = {"RTC_STREAM_MAX_T": "256", "RTC_STREAM_TILE": "256"}
 PORT_KERNELS = ("search_brute", "search_bitmask", "search_packed",
-                "search_range", "search_words")
+                "search_range", "search_words", "search_mxu")
 
 
 @pytest.fixture(autouse=True)
@@ -237,7 +239,9 @@ def test_cross_tile_ties_take_the_lowest_original_index(tpu, env, dup_scene,
     assert xi.max() < 600 and ((xi >= 0) & (xi < 300)).sum() > 50
 
 
-# The JAX launchers, and the TPU kernel each one runs.
+# The JAX launchers, and the TPU kernel each one runs. The MXU launcher is
+# imported from its module inside search_triangles_pallas, so it is patched
+# there.
 JAX_LAUNCHERS = {
     "_search_padded_brute": "K1",
     "_search_padded_bitmask": "K2",
@@ -246,12 +250,14 @@ JAX_LAUNCHERS = {
     "_search_padded_streamed": "K5",
     "_search_padded_streamed_words": "K6",
     "_search_padded_streamed_words_tmajor": "K7",
+    "_search_padded_mxu": "K8",
 }
 SIZES = {  # (live triangles, knobs)
     "brute_size": (300, {}),
     "fits": (1800, {}),
     "past_word_cap": (1800, {"RTC_BITMASK_MAX_WORDS": "0"}),
     "streamed": (1800, {"RTC_STREAM_MAX_T": "1024", "RTC_STREAM_TILE": "768"}),
+    "past_mxu_cap": (8300, {}),  # 8,320 padded
 }
 
 
@@ -267,11 +273,11 @@ def jax_spies(monkeypatch):
             return (jnp.full((8, n_cols), 999999.0, jnp.float32),
                     jnp.full((8, n_cols), -1, jnp.int32))
 
-        monkeypatch.setattr(ip, name, spy)
+        monkeypatch.setattr(jm if name == "_search_padded_mxu" else ip, name, spy)
     return calls
 
 
-@pytest.mark.parametrize("size", list(SIZES))
+@pytest.mark.parametrize("size", [s for s in SIZES if s != "past_mxu_cap"])
 @pytest.mark.parametrize("stream_cull", [None, "packed", "words", "range"])
 @pytest.mark.parametrize("cull", [None, "bitmask", "range"])
 def test_route_matrix_matches_jax(cull, stream_cull, size, jax_spies, port_spies,
@@ -304,8 +310,39 @@ def test_route_matrix_matches_jax(cull, stream_cull, size, jax_spies, port_spies
         assert port_spies == [f"search_{way.kernel}"], (order, way)
 
 
+@pytest.mark.parametrize("size", ["brute_size", "fits", "past_mxu_cap"])
+@pytest.mark.parametrize("cull", [None, "range"])
+def test_mxu_route_matches_jax(cull, size, jax_spies, port_spies, monkeypatch,
+                               capsys):
+    """RTC_KERNEL=mxu takes K8 at any scene size up to the cap (the brute
+    rule does not apply) and past it prints the JAX package's notice and
+    takes the packet route, on both sides."""
+    n_tris, env = SIZES[size]
+    jtris, n = soup(n_tris, seed=3)
+    ja = j_build_accel(jtris, n)
+    tris = port_tris(jtris)
+    accel = build_accel(tris, n)
+    o, d, _ = rays_at(64, seed=31)
+    _set(monkeypatch, {**env, "RTC_KERNEL": "mxu"})
+    if cull:
+        monkeypatch.setenv("RTC_CULL", cull)
+    ip.search_triangles_pallas(jnp.asarray(o), jnp.asarray(d), jtris,
+                               interpret=True, accel=ja, n_live=n)
+    jax_err = capsys.readouterr().err
+    way = search.route(n, accel.n_blocks, search.Knobs.read())
+    assert [c[0] for c in jax_spies] == [way.tpu]
+    assert (way.tpu == "K8") == (size != "past_mxu_cap")
+    search.search_triangles(torch.from_numpy(o), torch.from_numpy(d), tris, n,
+                            accel=accel)
+    assert port_spies == [f"search_{way.kernel}"]
+    port_err = capsys.readouterr().err
+    notice = "RTC_KERNEL=mxu unsupported at 8320 padded triangles (cap 8192)"
+    assert (notice in jax_err) == (notice in port_err) == (size == "past_mxu_cap")
+
+
 ROUTE_ENVS = {
     "brute": {"RTC_KERNEL": "brute"},
+    "mxu": {"RTC_KERNEL": "mxu"},
     "bitmask": {},
     "packed": {"RTC_BITMASK_MAX_WORDS": "0"},
     "range": {"RTC_CULL": "range"},
@@ -313,8 +350,9 @@ ROUTE_ENVS = {
 }
 
 
-@pytest.mark.parametrize("typo", [("RTC_STREAM_ORDER", "tiles"), ("RTC_EXTRACT", "rolll")],
-                         ids=["order", "extract"])
+@pytest.mark.parametrize("typo", [("RTC_STREAM_ORDER", "tiles"), ("RTC_EXTRACT", "rolll"),
+                                  ("RTC_MXU_PRECISION", "split")],
+                         ids=["order", "extract", "mxu_precision"])
 @pytest.mark.parametrize("kernel", list(ROUTE_ENVS))
 def test_knob_typos_raise_on_every_route(kernel, typo, monkeypatch, port_spies):
     jtris, n = soup(1800, seed=21)
@@ -330,14 +368,22 @@ def test_knob_typos_raise_on_every_route(kernel, typo, monkeypatch, port_spies):
     assert port_spies == [f"search_{kernel}"]
 
 
-def test_only_mxu_is_not_ported(monkeypatch):
+def test_only_mxu_is_not_ported(monkeypatch, port_spies):
+    """Nothing is left unported: RTC_KERNEL=mxu routes to K8 (search_mxu),
+    and no value of any choice knob raises NotImplementedError."""
     o, d, _ = (torch.from_numpy(x) for x in rays_at(16, seed=0))
     jtris, n = soup(1800, seed=21)
     tris = port_tris(jtris)
     monkeypatch.setenv("RTC_KERNEL", "mxu")
-    with pytest.raises(NotImplementedError, match="K8"):
-        search.search_triangles(o, d, tris, n)
-    assert search._NOT_PORTED.keys() == {("RTC_KERNEL", "mxu")}
+    assert search.route(n, 15, search.Knobs.read()) == search.Route("mxu", "K8")
+    search.search_triangles(o, d, tris, n)  # the trivial accel packs its table
+    assert port_spies == ["search_mxu"]
+    assert not hasattr(search, "_NOT_PORTED")
+    for name, values in search._CHOICES.items():
+        for value in values:
+            monkeypatch.setenv(name, value)
+            search.Knobs.read()
+        monkeypatch.delenv(name)
 
 
 def _cli(argv, env):

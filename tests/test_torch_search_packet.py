@@ -37,7 +37,7 @@ BOX_SCENE = os.path.join(os.path.dirname(__file__), "..", "examples", "box_scene
 KNOBS = ("RTC_KERNEL", "RTC_CULL", "RTC_STREAM_CULL", "RTC_BRUTE_MAX",
          "RTC_BITMASK_MAX_WORDS", "RTC_STREAM_MAX_T", "RTC_STREAM_TILE",
          "RTC_STREAM_GRANULE", "RTC_COL_GROUP", "RTC_RESOLVE",
-         "RTC_STREAM_ORDER", "RTC_EXTRACT")
+         "RTC_STREAM_ORDER", "RTC_EXTRACT", "RTC_MXU_PRECISION")
 
 
 @pytest.fixture(autouse=True)
@@ -246,7 +246,7 @@ def test_routing_table(spies, monkeypatch):
 @pytest.mark.parametrize(
     "env,exc",
     [
-        ({"RTC_KERNEL": "mxu"}, NotImplementedError),
+        ({"RTC_MXU_PRECISION": "high"}, ValueError),
         ({"RTC_STREAM_ORDER": "tiles"}, ValueError),
         ({"RTC_EXTRACT": "rolll"}, ValueError),
         ({"RTC_STREAM_ORDER": "ray-major"}, ValueError),
