@@ -22,6 +22,7 @@ raytracingc_tpu_torch (no JAX).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -37,7 +38,8 @@ BOX_SCENE = os.path.join(HERE, "examples", "box_scene.txt")
 # Phase 3: the kernel against its plain version, bit for bit.
 PHASE3_N_LIVE = (1, 10, 255, 256, 257, 640, 1536)
 PHASE3_RAYS = (65536, 100003)  # one full pixel chunk, one ragged size
-PHASE3_DEAD = 0.3
+# Dead lanes: the share DEAD of raytracingc_tpu_torch/tools/packets.py, in
+# every phase.
 TIMED_N_LIVE = (10, 640)  # box_scene, and box_scene tessellated 64-fold
 TIMED_RAYS = 65536
 
@@ -46,6 +48,11 @@ TIMED_RAYS = 65536
 # triangles. (label, scene, live triangles, knobs, expected kernel); the
 # scene is a seeded soup or box_scene tessellated to that count, and the
 # label starts with the TPU kernel that the route stands for (checked).
+# Every case runs coherent packets (tools/packets.py packet_rays); the
+# bitmask and packed cases (K2, K3) also run secondary-like packets
+# (secondary_rays: a shared origin region, independent directions, as after
+# a diffuse bounce), drawn from their own seeded generator so that the
+# coherent rays, and every later case's, are those of the runs before.
 PACKET_CASES = (
     ("K2 soup 1,600 (1 word)", "soup", 1600, {}, "bitmask"),
     ("K2 soup 10,240 (3 words)", "soup", 10240, {}, "bitmask"),
@@ -88,10 +95,13 @@ TIMED_PACKET = {
     "K6 box 163,840 streamed (RTC_STREAM_CULL=words RTC_STREAM_ORDER=ray)": 3,
     "K7 box 163,840 streamed (RTC_STREAM_CULL=words)": 3,
 }
+SECONDARY_KERNELS = ("bitmask", "packed")
+SECONDARY_SEED = 20261017
+SECONDARY = " [secondary]"  # label suffix of a case's secondary-like timing
 
 # Phase 3c: the MXU kernel (K8) against its plain version in both
 # precisions, its live-lane winners against the brute scan, and the slicing
-# check, at R in PHASE3_RAYS with PHASE3_DEAD dead lanes. (label, scene,
+# check, at R in PHASE3_RAYS with DEAD dead lanes. (label, scene,
 # live triangles): box_scene and its tessellations in the kernel's range,
 # and a seeded soup at the kernel's cap. The contract (PERF.md): dead lanes
 # exactly (MISS_DST, -1); winners equal except flips at a validity boundary
@@ -130,12 +140,16 @@ UNION_CASES = (
 UNION_TIMED = "box 10,240 (--tessellate 5)"  # the union tool's scene
 
 # Bounds: the larger of the operations over the card's peak rate for their
-# type and the bytes over its memory rate (published H100 SXM peaks, dense,
-# at 700 W). FP32 operations of one MT test (csrc/mt.cuh mt_distance, each
-# add, multiply, compare, abs and select and the IEEE division counted as
-# one): dn 5, h 9, det 5, the guard 2, the guarded 1/det 2, s 3, u 6, q 9,
-# v 6, dst 6, the validity tests 7, the result select 1.
-PEAK_FP32 = 67e12
+# type and the bytes over its memory rate (H100 SXM at 700 W). FP32
+# operations of one MT test (csrc/mt.cuh mt_distance, each add, multiply,
+# compare, abs and select and the IEEE division counted as one): dn 5, h 9,
+# det 5, the guard 2, the guarded 1/det 2, s 3, u 6, q 9, v 6, dst 6, the
+# validity tests 7, the result select 1. The kernels are built with
+# --fmad=false (bit equality with the plain versions), so no multiply and add
+# fuse: each operation is its own instruction, and the FP32 rate is one
+# operation per lane per clock, 132 SMs x 128 lanes x 1.98 GHz = 33.4e12/s,
+# not the published 67 TFLOP/s, which counts an FMA as two.
+PEAK_FP32 = 33.4e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 MT_OPS = 61
@@ -251,6 +265,8 @@ def random_soup(rng, n_live: int, n_rays: int):
     triangle duplicates an earlier one so the lowest-index tie is exercised."""
     import numpy as np
 
+    from raytracingc_tpu_torch.tools.packets import DEAD
+
     c = rng.uniform(-6, 6, (n_live, 3)).astype(np.float32)
     c[:, 2] += 10.0
     e1 = (rng.normal(size=(n_live, 3)) * 2.0).astype(np.float32)
@@ -264,23 +280,8 @@ def random_soup(rng, n_live: int, n_rays: int):
     d = rng.normal(size=(n_rays, 3)).astype(np.float32)
     d[:, 2] = np.abs(d[:, 2]) + 1.0
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    alive = rng.uniform(size=n_rays) >= PHASE3_DEAD
+    alive = rng.uniform(size=n_rays) >= DEAD
     return tri, o, d, alive
-
-
-def packet_rays(rng, n_rays: int, lo, hi):
-    """Rays in packets of 8 that share an origin region and a direction up
-    to a small jitter, as adjacent pixels' rays do; 30% of lanes dead."""
-    import numpy as np
-
-    n_pk = -(-n_rays // 8)
-    o = np.repeat(rng.uniform(lo, hi, (n_pk, 3)), 8, axis=0)[:n_rays]
-    o = (o + rng.normal(size=(n_rays, 3)) * 0.02).astype(np.float32)
-    d = np.repeat(rng.normal(size=(n_pk, 3)), 8, axis=0)[:n_rays]
-    d = d + rng.normal(size=(n_rays, 3)) * 0.02
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    alive = rng.uniform(size=n_rays) >= PHASE3_DEAD
-    return o, d, alive
 
 
 def packet_scene(rng, kind: str, n_live: int):
@@ -364,6 +365,9 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         search_words_reference,
     )
     from raytracingc_tpu_torch.tools import cuda_ms
+    from raytracingc_tpu_torch.tools.packets import packet_rays, secondary_rays
+
+    import numpy as np
 
     routes = {  # route kernel: (wrapper, plain version)
         "bitmask": (search_bitmask, search_bitmask_reference),
@@ -374,7 +378,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
     timings = {}
     work = {}
     max_err = {fn.__name__: 0.0 for fn, _ in routes.values()}
-    for label, kind, n_live, env, expect in cases:
+    for case, (label, kind, n_live, env, expect) in enumerate(cases):
         t = time.time()
         tris, n, (lo, hi) = packet_scene(rng, kind, n_live)
         tris = tris.to(dev)
@@ -391,10 +395,14 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
             plane, oi = culling.stream_tile_pad(accel.packed_plane,
                                                 accel.orig_idx, way.tile)
         brute_tri = pack_triangles(tris, n)
+        sec_rng = np.random.default_rng([SECONDARY_SEED, case])
+        ray_sets = [("", lambda n_rays: packet_rays(rng, n_rays, lo, hi))]
+        if way.kernel in SECONDARY_KERNELS:
+            ray_sets.append((SECONDARY, lambda n_rays: secondary_rays(
+                sec_rng, n_rays, lo, hi)))
         notes = []
-        for n_rays in rays:
-            o, d, alive = (torch.from_numpy(x).to(dev)
-                           for x in packet_rays(rng, n_rays, lo, hi))
+        for n_rays, (suffix, make) in ((r, s) for r in rays for s in ray_sets):
+            o, d, alive = (torch.from_numpy(x).to(dev) for x in make(n_rays))
             o_p, d_p, a_p = culling.packets(o, d, alive)
             bpt = way.tile // BLOCK
             if way.kernel == "bitmask":
@@ -419,7 +427,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
             dr, ir = plain(*args)
             db, ib = search_brute_reference(o, d, brute_tri, n, alive)
             torch.cuda.synchronize()
-            where = f"{label} R={n_rays}"
+            where = f"{label}{suffix} R={n_rays}"
             if not torch.equal(ik, ir):
                 raise AssertionError(f"{where}: idx differs from the plain "
                                      f"version on {int((ik != ir).sum())} rays")
@@ -439,16 +447,17 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                              f"nonempty spans of {span.mean():.1f} blocks on "
                              f"average")
             else:
-                notes.append(f"R={n_rays}: {hits} live hits, "
-                             f"{int((words != 0).sum())} nonzero words")
+                notes.append(f"R={n_rays}{suffix}: {hits} live hits, "
+                             f"{int((words != 0).sum())} nonzero words, "
+                             f"{int(table.sum())} (packet, block) pairs")
             if n_rays == TIMED_RAYS and label in TIMED_PACKET:
-                timings[label] = (cuda_ms(lambda: kern(*args), 20),
-                                  cuda_ms(lambda: plain(*args),
-                                          TIMED_PACKET[label]))
-                work[label] = (int(table.sum()) * culling.RAY_SUBLANES * BLOCK,
-                               n_bytes(*args[:-2 if way.kernel in
-                                             ("packed", "words") else None],
-                                       dk, ik))
+                timings[label + suffix] = (cuda_ms(lambda: kern(*args), 20),
+                                           cuda_ms(lambda: plain(*args),
+                                                   TIMED_PACKET[label]))
+                work[label + suffix] = (
+                    int(table.sum()) * culling.RAY_SUBLANES * BLOCK,
+                    n_bytes(*args[:-2 if way.kernel in ("packed", "words")
+                                  else None], dk, ik))
         phase("kernel", t, f"{label}: {name} == plain bitwise, live lanes == "
               f"brute scan; {way.kernel} ({way.tpu}) tile={way.tile} "
               f"n_tiles={way.n_tiles} granule={way.granule}; " + "; ".join(notes))
@@ -580,6 +589,7 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
     )
     from raytracingc_tpu_torch.scene.types import MISS_DST
     from raytracingc_tpu_torch.tools import cuda_ms
+    from raytracingc_tpu_torch.tools.packets import packet_rays
 
     timings, work, max_err, control = {}, {}, 0.0, None
     for label, kind, n_live in cases:
@@ -691,6 +701,7 @@ def check_union_kernel(dev, rng, cases=UNION_CASES, rays=PHASE3_RAYS):
         search_union_reference,
     )
     from raytracingc_tpu_torch.tools import cuda_ms
+    from raytracingc_tpu_torch.tools.packets import packet_rays
 
     timings, work, max_err = {}, {}, 0.0
     for label, kind, n_live in cases:
@@ -814,6 +825,7 @@ def main() -> int:
     from raytracingc_tpu_torch.ops.search_words import search_words
     from raytracingc_tpu_torch.render.image import read_bmp
     from raytracingc_tpu_torch.tools import smem_probe, union_walk_ab
+    from raytracingc_tpu_torch.tools.packets import DEAD
     from raytracingc_tpu_torch.render.renderer import render
     from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
 
@@ -839,8 +851,12 @@ def main() -> int:
         ln.split(":", 1)[1].strip() for ln in _build.build_log.splitlines()
         if "Used" in ln
     )
+    packet_ptxas = "; ".join(
+        f"{k}: {_build.ptxas_report(k) or 'not reported'}"
+        for k in ("search_bitmask_kernel", "search_packed_kernel"))
     phase("build", t, f"{_build.library_path().name} built in "
-          f"{time.time() - t:.2f}s (ptxas: {ptxas or 'cached library'})")
+          f"{time.time() - t:.2f}s (ptxas: {ptxas or 'cached library'}; "
+          f"{packet_ptxas})")
 
     # 3. Kernel vs plain, on the card: bitwise.
     t = time.time()
@@ -879,7 +895,7 @@ def main() -> int:
     )
     phase("kernel", t, f"search_brute == search_brute_reference bitwise on "
           f"{n_cases} cases (n_live {PHASE3_N_LIVE} x R {PHASE3_RAYS}, "
-          f"{PHASE3_DEAD:.0%} dead); at R={TIMED_RAYS}: {times}")
+          f"{DEAD:.0%} dead); at R={TIMED_RAYS}: {times}")
 
     # 3b. The packet kernels vs plain, and vs the brute scan.
     t = time.time()
@@ -889,7 +905,7 @@ def main() -> int:
     phase("kernel", t, "packet kernels at R=" + str(TIMED_RAYS) + ": " + ", ".join(
         f"{label}: kernel {k:.4f} ms, plain {p:.4f} ms, {packet_work[label][0]} "
         f"tested pairs, bound {packet_bound[label][0]:.5f} ms "
-        f"({packet_bound[label][1]})"
+        f"({packet_bound[label][1]}), {packet_bound[label][0] / k:.1%} of bound"
         for label, (k, p) in packet_times.items()))
 
     # 3c. The MXU kernel vs plain, vs the brute scan, and sliced.
@@ -957,6 +973,8 @@ def main() -> int:
             render_s, rays = float(prof.group(1)), int(prof.group(2))
             img = read_bmp(out)
             mean = float(img.mean())
+            with open(out, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()[:16]
             if launched[expect] < 1:
                 raise AssertionError(f"{label}: {expect} never launched")
             others = {k: v for k, v in launched.items() if k != expect and v}
@@ -995,7 +1013,7 @@ def main() -> int:
                         f"{float((img != other).mean()):.4%} of bytes differ")
             phase("main", t, f"{label}: render {render_s:.3f}s, {rays} rays, "
                   f"{rays / render_s:.4g} rays/s, {launched[expect]} {expect} "
-                  f"launches, mean byte {mean:.2f}{same}")
+                  f"launches, mean byte {mean:.2f}, BMP sha256 {digest}{same}")
 
     for label, module, argv, expect in TOOL_RUNS:
         t = time.time()

@@ -109,7 +109,7 @@ __device__ __forceinline__ void for_each_bit(uint32_t m, F&& f) {
   }
 }
 
-// The walk of the tiled word tables (search_packed.cu, search_words.cu).
+// The one-thread-per-ray walk of the tiled word tables (search_words.cu).
 // packet_words holds this lane's n_words words for each of n_tiles tiles of
 // blocks_per_tile blocks; bit j of word w of tile t covers the tile-local
 // blocks [(w * 31 + j) * granule, ... + granule), clipped to the tile. Tests

@@ -6,39 +6,37 @@
 // is set iff some live lane of the packet passes the slab test of the
 // 128-triangle Morton block w * 31 + j (ops/culling.py::packet_block_masks).
 // Every ray of the packet, live or dead, tests exactly the blocks of its
-// packet's set bits, in ascending block order, with the shared
-// Moller-Trumbore test (mt.cuh), and keeps the lexicographic minimum of
-// (dst, original index). A packet with no set bit misses: (MISS_DST, -1).
-// This is the TPU kernel's result bit for bit, and equals the plain version
-// (ops/search_bitmask.py::search_bitmask_reference) on the card.
+// packet's set bits with the shared Moller-Trumbore test (mt.cuh) and keeps
+// the lexicographic minimum of (dst, original index). A packet with no set
+// bit misses: (MISS_DST, -1). This is the TPU kernel's result bit for bit,
+// and equals the plain version (ops/search_bitmask.py::
+// search_bitmask_reference) on the card.
 //
-// What bounds it on an H100: the MT work, ~60 FP32 operations per (ray,
-// tested triangle), and the warp divergence of the bit walk. Each block test
-// reads 13 x 128 words of the plane (6.5 KB), from L2 for any scene this
-// kernel serves (<= 248 blocks, a 1.5 MB plane).
+// What bounds it on an H100: FP32 issue. Under --fmad=false each of the 61
+// operations of an MT test is its own instruction, and a tested block is
+// 8 x 128 tests against 13 x 128 words (6.5 KB) read from L2 (the plane of
+// any scene this kernel serves, <= 248 blocks, is <= 1.5 MB).
 //
-// What the design does about it: one thread per ray keeps the ray and its
-// running best in registers. The 8 lanes of a packet read the same words, so
-// a packet never diverges internally; the warp (4 packets) walks the union
-// of its packets' bits with __ffs, so packets that share a block test it in
-// step and its rows are read once per warp, while a lane whose packet has
-// that bit clear idles. The TPU kernel's packing of active columns, its
-// descending-popcount column sort and the grouped lockstep walk
-// (RTC_COL_GROUP) change no result and are left out: they schedule the
-// TPU's scalar core. The words are read from global memory, so no ray
-// slicing to fit a scratch budget is needed. No shared memory, no tensor
-// cores: the simple first version.
+// What the design does about it (packet_walk.cuh): one warp per packet, so
+// the warp walks only its own packet's bits and every lane tests every
+// pair it is given (no lane idles on another packet's block), and the
+// triangles across the lanes with the packet's 8 rays in registers, so one
+// coalesced load of a triangle's 13 words serves 8 tests. This kernel is
+// that walk with one tile, granule 1 and blocks_per_tile = n_blocks (bits
+// past n_blocks are ignored). The TPU kernel's packing of active columns,
+// its descending-popcount column sort and the grouped lockstep walk
+// (RTC_COL_GROUP) schedule the TPU's scalar core and change no result; they
+// are left out. The words are read from global memory, so no ray slicing
+// to fit a scratch budget is needed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mt.cuh"
+#include "packet_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // rays per block: 32 packets, 8 warps
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rtc::kPacketThreads)
 search_bitmask_kernel(const float* __restrict__ o,          // [R, 3]
                       const float* __restrict__ d,          // [R, 3]
                       const int32_t* __restrict__ words,    // [ceil(R/8), W]
@@ -47,29 +45,8 @@ search_bitmask_kernel(const float* __restrict__ o,          // [R, 3]
                       int n_rays, int n_words, int n_blocks,
                       float* __restrict__ dst_out,          // [R]
                       int32_t* __restrict__ idx_out) {      // [R]
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = r < n_rays;
-  const rtc::Ray ray = rtc::load_ray(o, d, r, in_range);
-  const int64_t t_stride = static_cast<int64_t>(n_blocks) * rtc::kBlock;
-  const int32_t* packet_words =
-      words + static_cast<int64_t>(r / rtc::kPacket) * n_words;
-
-  float best_d = rtc::kMissDst;
-  int32_t best_i = rtc::kBigIdx;
-  for (int w = 0; w < n_words; ++w) {  // uniform over the grid
-    const uint32_t m =
-        in_range ? static_cast<uint32_t>(__ldg(packet_words + w)) : 0u;
-    rtc::for_each_bit(m, [&](int j) {
-      const int blk = w * rtc::kBitsPerWord + j;
-      if (blk < n_blocks) {
-        rtc::mt_block(ray, plane, orig_idx, t_stride, blk, best_d, best_i);
-      }
-    });
-  }
-  if (in_range) {
-    dst_out[r] = best_d;
-    idx_out[r] = best_d < rtc::kMissDst ? best_i : -1;
-  }
+  rtc::search_packet(o, d, words, plane, orig_idx, n_rays, 1, n_words,
+                     n_blocks, 1, dst_out, idx_out);
 }
 
 }  // namespace
@@ -83,8 +60,9 @@ int rtc_search_bitmask(const void* o, const void* d, const void* words,
                        int n_words, int n_blocks, void* dst, void* idx,
                        void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  search_bitmask_kernel<<<blocks, kThreads, 0,
+  const int packets = (n_rays + rtc::kPacket - 1) / rtc::kPacket;
+  const int blocks = (packets + rtc::kPacketWarps - 1) / rtc::kPacketWarps;
+  search_bitmask_kernel<<<blocks, rtc::kPacketThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const int32_t*>(words), static_cast<const float*>(plane),

@@ -10,39 +10,37 @@
 // covers the tile-local blocks [(w * 31 + j) * granule, ... + granule),
 // clipped to blocks_per_tile, and is set iff some live lane of the packet
 // passes the slab test of that granule's union AABB. Every ray of the packet
-// tests the blocks of its set bits, tiles and blocks in ascending order,
-// with the shared Moller-Trumbore test (mt.cuh), keeping the lexicographic
-// minimum of (dst, original index). A packet with no set bit misses.
+// tests the blocks of its set bits with the shared Moller-Trumbore test
+// (mt.cuh), keeping the lexicographic minimum of (dst, original index). A
+// packet with no set bit misses.
 //
 // The TPU kernel writes one result per (tile, program) and folds the tiles
 // afterwards by lex-min, because its grid is sequential and its revisited
-// output blocks were unreliable. Here the loop over tiles runs inside the
-// thread and the running best carries across tiles: a lex-min over a
+// output blocks were unreliable. Here the walk runs over the tiles inside
+// the warp and the running bests carry across tiles: a lex-min over a
 // partition is the lex-min over the whole, so the result bits are the same,
 // and it equals the plain version (ops/search_packed.py::
 // search_packed_reference) on the card.
 //
-// What bounds it on an H100: the MT work (~60 FP32 operations per (ray,
-// tested triangle)) and the divergence of the bit walk; the plane (8.5 MB at
-// 163,840 triangles) stays in the 50 MB L2, and the words are 4 bytes per
-// (packet, tile, word). The design is that of search_bitmask.cu: one thread
-// per ray, registers for the ray and its best, the warp walking the union of
-// its 4 packets' bits so that a shared block is read once per warp. Left out
-// as TPU scheduling aids that change no result: the packing of active
-// columns per (program, tile), the descending-popcount sort and the grouped
-// lockstep walk (RTC_COL_GROUP). No shared memory, no tensor cores: the
-// simple first version.
+// What bounds it on an H100: FP32 issue, as for search_bitmask.cu (61
+// un-fused operations per MT test, 8 x 128 tests per block against 6.5 KB
+// of plane rows); the plane (8.5 MB at 163,840 triangles) stays in the
+// 50 MB L2, and the words are 4 bytes per (packet, tile, word). The design
+// is packet_walk.cuh's: one warp per packet walking its own bits tile by
+// tile, each bit's granule blocks clipped to the tile, triangles across the
+// lanes and the packet's 8 rays in registers. Left out as TPU scheduling
+// aids that change no result: the packing of active columns per (program,
+// tile), the descending-popcount sort and the grouped lockstep walk
+// (RTC_COL_GROUP).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mt.cuh"
+#include "packet_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // rays per block: 32 packets, 8 warps
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rtc::kPacketThreads)
 search_packed_kernel(const float* __restrict__ o,           // [R, 3]
                      const float* __restrict__ d,           // [R, 3]
                      const int32_t* __restrict__ words,     // [ceil(R/8), n_tiles, W]
@@ -52,21 +50,8 @@ search_packed_kernel(const float* __restrict__ o,           // [R, 3]
                      int blocks_per_tile, int granule,
                      float* __restrict__ dst_out,           // [R]
                      int32_t* __restrict__ idx_out) {       // [R]
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = r < n_rays;
-  const rtc::Ray ray = rtc::load_ray(o, d, r, in_range);
-  const int32_t* packet_words =
-      words + static_cast<int64_t>(r / rtc::kPacket) * n_tiles * n_words;
-
-  float best_d = rtc::kMissDst;
-  int32_t best_i = rtc::kBigIdx;
-  rtc::walk_tile_words(ray, packet_words, in_range, n_tiles, n_words,
-                       blocks_per_tile, granule, plane, orig_idx, best_d,
-                       best_i);
-  if (in_range) {
-    dst_out[r] = best_d;
-    idx_out[r] = best_d < rtc::kMissDst ? best_i : -1;
-  }
+  rtc::search_packet(o, d, words, plane, orig_idx, n_rays, n_tiles, n_words,
+                     blocks_per_tile, granule, dst_out, idx_out);
 }
 
 }  // namespace
@@ -80,8 +65,9 @@ int rtc_search_packed(const void* o, const void* d, const void* words,
                       int n_tiles, int n_words, int blocks_per_tile,
                       int granule, void* dst, void* idx, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  search_packed_kernel<<<blocks, kThreads, 0,
+  const int packets = (n_rays + rtc::kPacket - 1) / rtc::kPacket;
+  const int blocks = (packets + rtc::kPacketWarps - 1) / rtc::kPacketWarps;
+  search_packed_kernel<<<blocks, rtc::kPacketThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const int32_t*>(words), static_cast<const float*>(plane),

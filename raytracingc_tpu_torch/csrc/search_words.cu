@@ -26,12 +26,13 @@
 // the plain version (ops/search_words.py::search_words_reference) on the
 // card.
 //
-// The walk is search_packed.cu's (rtc::walk_tile_words) with one word per
-// (packet, tile), a constant the compiler folds into this instance. What
-// bounds it on an H100 and what the design does about it are as there: the
-// MT work and the divergence of the bit walk; one thread per ray, the warp
-// walking the union of its 4 packets' bits; the plane in L2. No shared
-// memory, no tensor cores: the simple first version.
+// The walk is rtc::walk_tile_words (mt.cuh) with one word per (packet,
+// tile), a constant the compiler folds into this instance. What bounds it on
+// an H100: the MT work and the divergence of the bit walk. The design is the
+// first one of the packet kernels: one thread per ray, the warp walking the
+// union of its 4 packets' bits, the plane in L2 (search_bitmask.cu and
+// search_packed.cu have since moved to packet_walk.cuh's warp per packet).
+// No shared memory, no tensor cores: the simple first version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -103,6 +104,7 @@ def build() -> Path:
     global build_log
     out = library_path()
     if out.exists():
+        build_log = ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -135,6 +137,28 @@ def load_library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def ptxas_report(kernel: str, log: str | None = None) -> str:
+    """What ptxas said of the entry functions whose (mangled) name contains
+    ``kernel`` in ``log`` (default: the last build's): registers and spill
+    bytes, e.g. ``"90 registers, 0 bytes spill stores, 0 bytes spill
+    loads"``, one per entry, or "" if the log has none (a cached library)."""
+    out, cur = [], None
+    for ln in (build_log if log is None else log).splitlines():
+        if "Compiling entry function" in ln:
+            cur = {} if kernel in ln else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill"] = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{m.group(1)} registers, {cur.get('spill', 'spills not reported')}")
+            cur = None
+    return "; ".join(out)
 
 
 class CudaError(RuntimeError):

@@ -1,7 +1,11 @@
 """Measurement tools of the port, each run as ``python -m
 raytracingc_tpu_torch.tools.<name>``: ``union_walk_ab`` (K9, program-level
-union culling against the production search) and ``smem_probe`` (K10, the
-largest shared-memory table a kernel can hold). Importing one runs nothing.
+union culling against the production search), ``smem_probe`` (K10, the
+largest shared-memory table a kernel can hold), ``packet_sweep`` (the
+packet kernels K2 and K3 timed on both ray sets) and ``chunk_profile``
+(where one pixel chunk's device time goes). ``packets`` holds the seeded
+packet workloads they, chip_smoke.py and the tests share. Importing one runs
+nothing.
 """
 
 

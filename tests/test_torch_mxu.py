@@ -41,6 +41,7 @@ from raytracingc_tpu_torch.ops.search_brute import pack_triangles, search_brute_
 from raytracingc_tpu_torch.render.renderer import render
 from raytracingc_tpu_torch.scene import builder as tb
 from raytracingc_tpu_torch.scene.types import MISS_DST
+from raytracingc_tpu_torch.tools.packets import packet_rays
 from test_intersect_mxu import _boundary_margin, _random_rays, _random_soup
 from test_torch_accel import assert_mxu_table_matches, port_tris, soup
 from test_torch_search_packet import KNOBS
@@ -363,7 +364,7 @@ def test_smoke_contract_catches_split3_held_to_highest():
     rng = np.random.default_rng(7)
     tris, n, (lo, hi) = cs.packet_scene(rng, "soup", 1024)
     accel = build_accel(tris, n)
-    o, d, alive = (torch.from_numpy(x) for x in cs.packet_rays(rng, 4096, lo, hi))
+    o, d, alive = (torch.from_numpy(x) for x in packet_rays(rng, 4096, lo, hi))
     w, f = culling.program_union_words(*culling.packets(o, d, alive), accel)
     run = lambda prec: pm.search_mxu_reference(o, d, w, f, accel.mxu_coeffs,
                                                accel.orig_idx, prec, alive)

@@ -3,11 +3,14 @@
 The port's dispatch (``ops/search.py``) on CPU tensors runs each kernel's
 plain version; it is held against the JAX package's auto dispatch with the
 Pallas kernels in interpret mode, on 1,800-triangle soups through the
-bitmask, packed-resident and packed-streamed branches. Winning indices must
-be EQUAL on every lane, dead lanes included. Distances agree to rtol 1e-6
-with atol 1e-5: XLA:CPU contracts the Möller–Trumbore multiply-adds into FMA
-and the port does not (ROADMAP Queue 3 P1). Live lanes must also win the
-same triangles as the port's brute scan over all live triangles.
+bitmask, packed-resident and packed-streamed branches, with mixed rays and
+with secondary-like packets (shared origins, independent directions) on a
+soup of duplicated triangles, whose ties must go to the lowest original
+index. Winning indices must be EQUAL on every lane, dead lanes included.
+Distances agree to rtol 1e-6 with atol 1e-5: XLA:CPU contracts the
+Möller–Trumbore multiply-adds into FMA and the port does not (ROADMAP Queue
+3 P1). Live lanes must also win the same triangles at the same distances as
+the port's brute scan over all live triangles.
 """
 
 import os
@@ -19,6 +22,7 @@ import torch
 
 import raytracingc_tpu.ops.intersect_pallas as ip
 from raytracingc_tpu.ops.accel import build_accel as j_build_accel
+from raytracingc_tpu.scene import builder as jb
 from raytracingc_tpu_torch.ops import culling, search
 from raytracingc_tpu_torch.ops.accel import build_accel
 from raytracingc_tpu_torch.ops.intersect import nearest_hit
@@ -31,6 +35,7 @@ from raytracingc_tpu_torch.ops.search_bitmask import (
 from raytracingc_tpu_torch.ops.search_brute import pack_triangles, search_brute_reference
 from raytracingc_tpu_torch.ops.search_packed import search_packed, search_packed_reference
 from raytracingc_tpu_torch.scene import builder as tb
+from raytracingc_tpu_torch.tools.packets import secondary_rays
 from test_torch_accel import port_tris, soup
 
 BOX_SCENE = os.path.join(os.path.dirname(__file__), "..", "examples", "box_scene.txt")
@@ -59,25 +64,62 @@ def rays_at(r, seed):
     return o, d, alive
 
 
-# (name, env, expected port route)
+def dup_soup(n, seed):
+    """:func:`soup` with every 7th triangle a copy of an earlier one (same
+    vertices and normal), so that equal distances occur: the winner must
+    be the lowest original index. Returns ``(JAX Triangles, n, copied)``,
+    ``copied`` the original indices that have a later copy."""
+    rs = np.random.default_rng(seed)
+    a = rs.uniform(-3, 3, (n, 3)).astype(np.float32)
+    b = a + rs.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    c = a + rs.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    verts = np.stack([a, b, c], 1)
+    dup = np.arange(7, n, 7)
+    verts[dup] = verts[dup // 2]
+    nrm = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+    tris, n_live = jb.triangles_from_arrays(
+        verts, nrm.astype(np.float32), np.full((n, 3), 0.5, np.float32),
+        np.zeros(n, np.float32), np.zeros(n, np.float32))
+    return tris, n_live, dup // 2
+
+
+# (name, env, expected port route, rays): the rays of rays_at on a soup, and
+# secondary-like packets (secondary_rays) on a soup with duplicated
+# triangles through K2 and K3 resident, streamed at granule 1 and at the
+# auto granule over a ragged last tile.
 BRANCHES = [
-    ("bitmask", {}, "bitmask"),
-    ("packed_resident", {"RTC_BITMASK_MAX_WORDS": "0"}, "packed"),
+    ("bitmask", {}, "bitmask", "mixed"),
+    ("packed_resident", {"RTC_BITMASK_MAX_WORDS": "0"}, "packed", "mixed"),
     ("packed_resident_g3", {"RTC_BITMASK_MAX_WORDS": "0",
-                            "RTC_STREAM_GRANULE": "3"}, "packed"),
+                            "RTC_STREAM_GRANULE": "3"}, "packed", "mixed"),
     ("packed_streamed", {"RTC_STREAM_MAX_T": "256", "RTC_STREAM_TILE": "256"},
-     "packed"),
+     "packed", "mixed"),
     ("packed_streamed_ragged", {"RTC_STREAM_MAX_T": "256",
-                                "RTC_STREAM_TILE": "512"}, "packed"),
+                                "RTC_STREAM_TILE": "512"}, "packed", "mixed"),
+    ("incoherent_bitmask", {}, "bitmask", "incoherent"),
+    ("incoherent_packed_resident", {"RTC_BITMASK_MAX_WORDS": "0"}, "packed",
+     "incoherent"),
+    ("incoherent_packed_streamed_g1", {"RTC_STREAM_MAX_T": "256",
+                                       "RTC_STREAM_TILE": "256",
+                                       "RTC_STREAM_GRANULE": "1"}, "packed",
+     "incoherent"),
+    ("incoherent_packed_streamed_auto", {"RTC_STREAM_MAX_T": "256",
+                                         "RTC_STREAM_TILE": "512"}, "packed",
+     "incoherent"),
 ]
 
 
-@pytest.mark.parametrize("name,env,kernel", BRANCHES, ids=[b[0] for b in BRANCHES])
-def test_packet_search_matches_interpret_pallas(name, env, kernel, monkeypatch):
+@pytest.mark.parametrize("name,env,kernel,rays", BRANCHES, ids=[b[0] for b in BRANCHES])
+def test_packet_search_matches_interpret_pallas(name, env, kernel, rays, monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    jtris, n = soup(1800, seed=21)  # 1,920 padded = 15 blocks
-    o, d, alive = rays_at(1003, seed=22)  # ragged: 125 packets + 3 rays
+    if rays == "mixed":
+        jtris, n = soup(1800, seed=21)  # 1,920 padded = 15 blocks
+        o, d, alive = rays_at(1003, seed=22)  # ragged: 125 packets + 3 rays
+    else:
+        jtris, n, copied = dup_soup(1800, seed=41)
+        o, d, alive = secondary_rays(np.random.default_rng(42), 1003, -4.0, 4.0)
     jd, ji = (np.asarray(x) for x in ip.search_triangles_pallas(
         jnp.asarray(o), jnp.asarray(d), jtris, interpret=True,
         alive=jnp.asarray(alive), accel=j_build_accel(jtris, n), n_live=n))
@@ -93,10 +135,20 @@ def test_packet_search_matches_interpret_pallas(name, env, kernel, monkeypatch):
     np.testing.assert_allclose(pd, jd, rtol=1e-6, atol=1e-5)
     bd, bi = search_brute_reference(to, td, pack_triangles(tris, n), n, ta)
     np.testing.assert_array_equal(pi[alive], bi.numpy()[alive])
+    np.testing.assert_array_equal(pd[alive], bd.numpy()[alive])
     assert (pi[alive] >= 0).sum() > 100  # the comparison is not vacuous
     # Dead lanes of packets with a live lane get their real hit; the brute
     # route would have masked them.
     assert ((pi >= 0) & ~alive).sum() > 10
+    if rays == "incoherent":
+        # Ties occur: live winners whose triangle has a later copy at the
+        # same distance, resolved to the original.
+        assert np.isin(pi[alive], copied).sum() > 10
+        # The packets are incoherent: each tests much of the scene.
+        o_p, d_p, a_p = culling.packets(to, td, ta)
+        words = culling.packet_block_masks(o_p, d_p, a_p, accel)
+        per_packet = bitmask_table(words, accel.n_blocks).sum(1).float()
+        assert per_packet[a_p.any(1)].mean() > 0.3 * accel.n_blocks
 
 
 def test_plain_versions_direct():

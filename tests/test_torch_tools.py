@@ -1,5 +1,7 @@
 """Port parity: the two measurement tools' kernels, union walk (K9) and
-shared-memory probe (K10), and the tools themselves on the CPU.
+shared-memory probe (K10), and the tools themselves on the CPU; the parts
+of the card-only tools (the packet sweep, the chunk profile) that run
+without a card.
 
 The JAX tools (``tools/union_walk_ab.py``, ``tools/smem_probe.py``) launch
 their Pallas kernels without an ``interpret`` argument; the tests run them
@@ -30,15 +32,26 @@ from jax.experimental import pallas as pl
 import raytracingc_tpu.ops.intersect_pallas as ip
 from raytracingc_tpu.ops.accel import build_accel as j_build_accel
 from raytracingc_tpu_torch import bridge
-from raytracingc_tpu_torch.ops import culling, search
-from raytracingc_tpu_torch.ops.search_bitmask import bitmask_table
+from raytracingc_tpu_torch.ops import _build, culling, search
+from raytracingc_tpu_torch.ops.search_bitmask import (
+    bitmask_table,
+    search_bitmask_reference,
+)
+from raytracingc_tpu_torch.ops.search_brute import pack_triangles, search_brute_reference
+from raytracingc_tpu_torch.ops.search_packed import search_packed_reference
 from raytracingc_tpu_torch.ops.search_union import (
     search_union,
     search_union_reference,
     union_table,
 )
 from raytracingc_tpu_torch.scene.types import MISS_DST
-from raytracingc_tpu_torch.tools import smem_probe, union_walk_ab
+from raytracingc_tpu_torch.tools import (
+    chunk_profile,
+    packet_sweep,
+    packets,
+    smem_probe,
+    union_walk_ab,
+)
 from test_torch_accel import port_tris, soup
 from test_torch_search_packet import KNOBS, rays_at
 
@@ -164,3 +177,74 @@ def test_smem_probe_tool_on_cpu():
     assert rc == 0, out
     assert "opt-in maximum: 232448 bytes" in out
     assert out.count(": OK") == 8 and "FAIL" not in out
+
+
+def test_packet_sweep_ray_sets():
+    """Both ray sets share an origin region per packet; the secondary set's
+    lanes point apart, the coherent set's together; DEAD of lanes dead."""
+    for make, coherent in ((packets.packet_rays, True),
+                           (packets.secondary_rays, False)):
+        o, d, alive = make(np.random.default_rng(3), 8003, *packet_sweep.BOX_ORIGINS)
+        assert o.shape == d.shape == (8003, 3) and o.dtype == d.dtype == np.float32
+        np.testing.assert_allclose(np.linalg.norm(d, axis=1), 1.0, rtol=1e-6)
+        assert abs(alive.mean() - (1 - packets.DEAD)) < 0.03
+        spread = lambda x: np.abs(x[:8000].reshape(-1, 8, 3) - x[:8000:8, None]).max(1)
+        assert np.median(spread(o)) < 0.2
+        assert (np.median(spread(d)) < 0.2) == coherent
+
+
+def test_packet_inputs_follow_the_dispatch(monkeypatch):
+    """The packet-route inputs the tools build: the auto route's kernel, and
+    the plain K2 and K3 on them equal the brute scan on live lanes."""
+    scene = union_walk_ab.load_scene(union_walk_ab.BOX_SCENE, 4, "cpu")  # 2,560
+    o, d, alive = (torch.from_numpy(x) for x in packets.secondary_rays(
+        np.random.default_rng(4), 1024, *packet_sweep.BOX_ORIGINS))
+    bd, bi = search_brute_reference(
+        o, d, pack_triangles(scene.triangles, scene.n_triangles),
+        scene.n_triangles, alive)
+    for env, kernel in (({}, "bitmask"), ({"RTC_STREAM_MAX_T": "1024",
+                                           "RTC_STREAM_TILE": "768"}, "packed")):
+        with monkeypatch.context() as m:
+            for k, v in env.items():
+                m.setenv(k, v)
+            way, words, plane, oi = packets.packet_inputs(scene, o, d, alive)
+        assert way.kernel == kernel
+        if kernel == "bitmask":
+            got_d, got_i = search_bitmask_reference(o, d, words, plane, oi)
+        else:
+            assert way.n_tiles > 1
+            got_d, got_i = search_packed_reference(o, d, words, plane, oi,
+                                                   way.tile, way.granule)
+        assert torch.equal(got_i[alive], bi[alive])
+        assert torch.equal(got_d[alive].view(torch.int32), bd[alive].view(torch.int32))
+        assert (got_i[alive] >= 0).sum() > 300
+
+
+def test_chunk_profile_busy_union():
+    assert chunk_profile.busy_us([]) == 0.0
+    assert chunk_profile.busy_us([(5, 6), (0, 2), (1, 3), (5.5, 5.75)]) == 4.0
+
+
+def test_card_only_tools_refuse_the_cpu():
+    for tool in (packet_sweep, chunk_profile):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main([])
+
+
+def test_ptxas_report():
+    """The ptxas report names each entry function's registers and spills."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121"
+        "search_bitmask_kernelEPKf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_121search_bitmask_kernelEPKf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, 412 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120"
+        "search_packed_kernelEPKf' for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 412 bytes cmem[0]\n")
+    assert _build.ptxas_report("search_bitmask_kernel", log) == (
+        "96 registers, 0 bytes spill stores, 0 bytes spill loads")
+    assert _build.ptxas_report("search_packed_kernel", log) == (
+        "128 registers, 4 bytes spill stores, 8 bytes spill loads")
+    assert _build.ptxas_report("search_range_kernel", log) == ""
