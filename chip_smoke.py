@@ -48,11 +48,16 @@ TIMED_RAYS = 65536
 # triangles. (label, scene, live triangles, knobs, expected kernel); the
 # scene is a seeded soup or box_scene tessellated to that count, and the
 # label starts with the TPU kernel that the route stands for (checked).
-# Every case runs coherent packets (tools/packets.py packet_rays); the
-# bitmask and packed cases (K2, K3) also run secondary-like packets
-# (secondary_rays: a shared origin region, independent directions, as after
-# a diffuse bounce), drawn from their own seeded generator so that the
-# coherent rays, and every later case's, are those of the runs before.
+# Every case runs coherent packets (tools/packets.py packet_rays), and
+# secondary-like packets too (secondary_rays: a shared origin region,
+# independent directions, as after a diffuse bounce; they give the range
+# kernel wide spans), drawn from their own seeded generator so that the
+# coherent rays, and every later case's, are those of the runs before. The
+# WHOLE_PLANE case runs wide_span_rays instead, from that generator too:
+# every 8th packet spans the whole plane (checked), so the range kernel
+# cuts it into the most work items a packet can have, whose results meet
+# only in the keys' atomicMin (ties across items:
+# tests/test_torch_search_range.py, on the CPU model).
 PACKET_CASES = (
     ("K2 soup 1,600 (1 word)", "soup", 1600, {}, "bitmask"),
     ("K2 soup 10,240 (3 words)", "soup", 10240, {}, "bitmask"),
@@ -74,6 +79,8 @@ PACKET_CASES = (
      {"RTC_CULL": "range"}, "range"),
     ("K5 box 163,840 streamed, tile 12,000 (RTC_CULL=range)", "box", 163840,
      {"RTC_CULL": "range", "RTC_STREAM_TILE": "12000"}, "range"),
+    ("K5 box 163,840 streamed, whole-plane spans (RTC_CULL=range)", "box",
+     163840, {"RTC_CULL": "range"}, "range"),
     ("K6 box 40,960 resident (RTC_STREAM_CULL=words)", "box", 40960,
      {"RTC_STREAM_CULL": "words"}, "words"),
     ("K6 box 163,840 streamed (RTC_STREAM_CULL=words RTC_STREAM_ORDER=ray)",
@@ -91,11 +98,13 @@ TIMED_PACKET = {
     "K3 box 163,840 streamed": 3,
     "K4 box 40,960 (RTC_CULL=range)": 1,
     "K5 box 163,840 streamed (RTC_CULL=range)": 1,
+    "K5 box 163,840 streamed, whole-plane spans (RTC_CULL=range)": 1,
     "K6 box 40,960 resident (RTC_STREAM_CULL=words)": 3,
     "K6 box 163,840 streamed (RTC_STREAM_CULL=words RTC_STREAM_ORDER=ray)": 3,
     "K7 box 163,840 streamed (RTC_STREAM_CULL=words)": 3,
 }
-SECONDARY_KERNELS = ("bitmask", "packed")
+SECONDARY_KERNELS = ("bitmask", "packed", "range")
+WHOLE_PLANE = "K5 box 163,840 streamed, whole-plane spans (RTC_CULL=range)"
 SECONDARY_SEED = 20261017
 SECONDARY = " [secondary]"  # label suffix of a case's secondary-like timing
 
@@ -319,20 +328,6 @@ def packet_scene(rng, kind: str, n_live: int):
     return tris, n, ((-8.0, -8.0, -8.0), (8.0, 8.0, 8.0))
 
 
-@contextlib.contextmanager
-def knobs_set(env: dict):
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
-
-
 def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
     """Phase 3b. Returns ``({label: (kernel ms, plain ms)}, {kernel name:
     max |dst - plain dst|}, {label: (tested pairs, bytes)})``, the last two
@@ -343,6 +338,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
     from raytracingc_tpu_torch.ops.accel import BLOCK, build_accel
     from raytracingc_tpu_torch.ops.search_bitmask import (
         bitmask_table,
+        n_packets,
         search_bitmask,
         search_bitmask_reference,
     )
@@ -364,8 +360,12 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         search_words,
         search_words_reference,
     )
-    from raytracingc_tpu_torch.tools import cuda_ms
-    from raytracingc_tpu_torch.tools.packets import packet_rays, secondary_rays
+    from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
+    from raytracingc_tpu_torch.tools.packets import (
+        packet_rays,
+        secondary_rays,
+        wide_span_rays,
+    )
 
     import numpy as np
 
@@ -397,7 +397,10 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         brute_tri = pack_triangles(tris, n)
         sec_rng = np.random.default_rng([SECONDARY_SEED, case])
         ray_sets = [("", lambda n_rays: packet_rays(rng, n_rays, lo, hi))]
-        if way.kernel in SECONDARY_KERNELS:
+        if label == WHOLE_PLANE:
+            ray_sets = [("", lambda n_rays: wide_span_rays(sec_rng, n_rays, lo,
+                                                           hi, accel))]
+        elif way.kernel in SECONDARY_KERNELS:
             ray_sets.append((SECONDARY, lambda n_rays: secondary_rays(
                 sec_rng, n_rays, lo, hi)))
         notes = []
@@ -443,9 +446,14 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
             max_err[name] = max(max_err[name], float((dk - dr).abs().max()))
             if way.kernel == "range":
                 span = (last - first + 1)[first <= last].float()
-                notes.append(f"R={n_rays}: {hits} live hits, {span.numel()} "
-                             f"nonempty spans of {span.mean():.1f} blocks on "
-                             f"average")
+                whole = int(((first == 0) & (last == accel.n_blocks - 1)).sum())
+                if label == WHOLE_PLANE and whole < n_packets(n_rays) // 16:
+                    raise AssertionError(f"{where}: only {whole} packets span "
+                                         f"the whole plane")
+                notes.append(f"R={n_rays}{suffix}: {hits} live hits, "
+                             f"{span.numel()} nonempty spans of {span.mean():.1f} "
+                             f"blocks on average, {whole} of the whole plane "
+                             f"({accel.n_blocks} blocks)")
             else:
                 notes.append(f"R={n_rays}{suffix}: {hits} live hits, "
                              f"{int((words != 0).sum())} nonzero words, "
@@ -588,7 +596,7 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
         search_brute_reference,
     )
     from raytracingc_tpu_torch.scene.types import MISS_DST
-    from raytracingc_tpu_torch.tools import cuda_ms
+    from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
     from raytracingc_tpu_torch.tools.packets import packet_rays
 
     timings, work, max_err, control = {}, {}, 0.0, None
@@ -811,7 +819,7 @@ def main() -> int:
     from raytracingc_tpu_torch.camera import Camera
     from raytracingc_tpu_torch.cli import main as cli_main
     from raytracingc_tpu_torch import tools
-    from raytracingc_tpu_torch.tools import cuda_ms
+    from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
     from raytracingc_tpu_torch.ops import _build
     from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu
     from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
@@ -820,6 +828,7 @@ def main() -> int:
         search_brute_reference,
     )
     from raytracingc_tpu_torch.ops.search_packed import search_packed
+    from raytracingc_tpu_torch.ops.search_range import search_grid as range_grid
     from raytracingc_tpu_torch.ops.search_range import search_range
     from raytracingc_tpu_torch.ops.search_union import search_union
     from raytracingc_tpu_torch.ops.search_words import search_words
@@ -853,10 +862,13 @@ def main() -> int:
     )
     packet_ptxas = "; ".join(
         f"{k}: {_build.ptxas_report(k) or 'not reported'}"
-        for k in ("search_bitmask_kernel", "search_packed_kernel"))
+        for k in ("search_bitmask_kernel", "search_packed_kernel",
+                  "search_range_kernel"))
+    ctas, sms = range_grid(dev)
     phase("build", t, f"{_build.library_path().name} built in "
           f"{time.time() - t:.2f}s (ptxas: {ptxas or 'cached library'}; "
-          f"{packet_ptxas})")
+          f"{packet_ptxas}); search_range_kernel's persistent grid: {ctas} "
+          f"CTAs per SM x {sms} SMs")
 
     # 3. Kernel vs plain, on the card: bitwise.
     t = time.time()

@@ -1,5 +1,7 @@
 // The packet walk of the bitmask (search_bitmask.cu, K2) and packed
-// (search_packed.cu, K3) kernels, designed for Hopper (sm_90a).
+// (search_packed.cu, K3) kernels, designed for Hopper (sm_90a). The range
+// kernel (search_range.cu, K4 and K5) runs the same pieces (load_packet,
+// test_block, warp_lex_min) over a piece of a block span.
 //
 // One warp serves one 8-ray packet. The packet's culling words are the same
 // for the whole warp, so the warp walks the packet's own set bits in
@@ -105,6 +107,65 @@ __device__ __forceinline__ void test_tri(const Ray (&ray)[kPacket],
   }
 }
 
+// Loads rays r0 .. r0 + 7 (zeros past n_rays) into every lane and resets
+// their running bests to (kMissDst, kBigIdx).
+__device__ __forceinline__ void load_packet(const float* __restrict__ o,
+                                            const float* __restrict__ d,
+                                            int r0, int n_rays,
+                                            Ray (&ray)[kPacket],
+                                            float (&best_d)[kPacket],
+                                            int32_t (&best_i)[kPacket]) {
+#pragma unroll
+  for (int i = 0; i < kPacket; ++i) {
+    ray[i] = load_ray(o, d, r0 + i, r0 + i < n_rays);
+    best_d[i] = kMissDst;
+    best_i[i] = kBigIdx;
+  }
+}
+
+// Tests the 128 triangles of block `blk` of the (12, t_stride) plane against
+// the packet's rays: lane l takes triangles l, l + 32, l + 64 and l + 96.
+// 16 resident warps per SM (128 registers a thread) hide the L2 latency of
+// the loads: a register double buffer (the next triangle loaded while this
+// one is tested) was tried and measured no faster on the H100.
+__device__ __forceinline__ void test_block(const Ray (&ray)[kPacket],
+                                           const float* __restrict__ plane,
+                                           const int32_t* __restrict__ orig_idx,
+                                           int64_t t_stride, int64_t blk,
+                                           int lane, float (&best_d)[kPacket],
+                                           int32_t (&best_i)[kPacket]) {
+#pragma unroll 1
+  for (int g = 0; g < kGroups; ++g) {
+    const Tri tri = load_tri(plane, orig_idx, t_stride,
+                             blk * kBlock + g * 32 + lane);
+    test_tri(ray, tri, best_d, best_i);
+  }
+}
+
+// Warp lex-min per ray (5 __shfl_xor_sync rounds each): lane i < kPacket
+// gets ray i's best in (out_d, out_i); the other lanes get (kMissDst,
+// kBigIdx).
+__device__ __forceinline__ void warp_lex_min(float (&best_d)[kPacket],
+                                             int32_t (&best_i)[kPacket],
+                                             int lane, float& out_d,
+                                             int32_t& out_i) {
+  out_d = kMissDst;
+  out_i = kBigIdx;
+#pragma unroll
+  for (int i = 0; i < kPacket; ++i) {
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, best_d[i], s);
+      const int32_t oi = __shfl_xor_sync(0xffffffffu, best_i[i], s);
+      lex_min(best_d[i], best_i[i], od, oi);
+    }
+    if (lane == i) {
+      out_d = best_d[i];
+      out_i = best_i[i];
+    }
+  }
+}
+
 // The search of the packet of this warp (packet blockIdx.x * kPacketWarps +
 // warp): words holds n_tiles * n_words words per packet, the plane
 // n_tiles * blocks_per_tile blocks. Writes dst_out and idx_out (-1 on a
@@ -123,45 +184,19 @@ __device__ __forceinline__ void search_packet(
   Ray ray[kPacket];
   float best_d[kPacket];
   int32_t best_i[kPacket];
-#pragma unroll
-  for (int i = 0; i < kPacket; ++i) {
-    ray[i] = load_ray(o, d, r0 + i, r0 + i < n_rays);
-    best_d[i] = kMissDst;
-    best_i[i] = kBigIdx;
-  }
+  load_packet(o, d, r0, n_rays, ray, best_d, best_i);
 
   const int64_t t_stride =
       static_cast<int64_t>(n_tiles) * blocks_per_tile * kBlock;
   BlockCursor cur{words + static_cast<int64_t>(p) * n_tiles * n_words,
                   n_tiles, n_words, blocks_per_tile, granule};
-  // 16 resident warps per SM (128 registers a thread) hide the L2 latency
-  // of the loads: a register double buffer (the next triangle loaded while
-  // this one is tested) was tried and measured no faster on the H100.
   for (int64_t blk = cur.next(); blk >= 0; blk = cur.next()) {
-#pragma unroll 1
-    for (int g = 0; g < kGroups; ++g) {
-      const Tri tri = load_tri(plane, orig_idx, t_stride,
-                               blk * kBlock + g * 32 + lane);
-      test_tri(ray, tri, best_d, best_i);
-    }
+    test_block(ray, plane, orig_idx, t_stride, blk, lane, best_d, best_i);
   }
 
-  // Warp lex-min per ray; lane i then holds ray i's result.
-  float out_d = kMissDst;
-  int32_t out_i = kBigIdx;
-#pragma unroll
-  for (int i = 0; i < kPacket; ++i) {
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, best_d[i], s);
-      const int32_t oi = __shfl_xor_sync(0xffffffffu, best_i[i], s);
-      lex_min(best_d[i], best_i[i], od, oi);
-    }
-    if (lane == i) {
-      out_d = best_d[i];
-      out_i = best_i[i];
-    }
-  }
+  float out_d;
+  int32_t out_i;
+  warp_lex_min(best_d, best_i, lane, out_d, out_i);
   const int r = r0 + lane;
   if (lane < kPacket && r < n_rays) {
     dst_out[r] = out_d;

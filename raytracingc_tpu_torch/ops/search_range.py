@@ -18,18 +18,26 @@ packet tests the blocks ``b`` of the plane with ``first <= b <= last`` and
 keeps the lexicographic minimum of (dst, original index); dead lanes are
 not masked (see ``search_bitmask``). Returns ``dst [R]`` float32 and ``idx
 [R]`` int32 (-1 on a miss).
+
+The kernel cuts each packet's clipped span into work items of at most
+``kSplit`` blocks (a constant of the source), walks each item in one warp
+and merges the items of a ray through a 64-bit key, ``bits(dst) << 32 |
+orig_idx`` (:func:`pack_keys`), with ``atomicMin``. :func:`range_items` and
+:func:`search_range_split` are the plain model of that work list and split
+walk at any split: the tests hold the model to :func:`search_range_reference`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytracingc_tpu_torch.ops.accel import BLOCK
+from raytracingc_tpu_torch.ops.accel import BLOCK, PAD_ORIG_IDX
 from raytracingc_tpu_torch.ops.search_bitmask import (
     check_packet_args,
     n_packets,
     search_blocks_reference,
 )
+from raytracingc_tpu_torch.scene.types import MISS_DST
 
 
 def range_table(first, last, n_blocks: int):
@@ -45,12 +53,69 @@ def search_range_reference(o, d, first, last, plane, orig_idx):
     return search_blocks_reference(o, d, plane, orig_idx, table)
 
 
+def pack_keys(dst, idx):
+    """``(dst, idx)`` → int64 keys ``bits(dst) << 32 | idx`` that order
+    exactly like (dst, idx) lexicographically, for float32 ``dst >= 0`` (the
+    kernels' distances are ``>= EPSILON`` or ``MISS_DST``) and int32 ``0 <=
+    idx <= 2**30``."""
+    return (dst.view(torch.int32).to(torch.int64) << 32) | idx.to(torch.int64)
+
+
+def unpack_keys(keys):
+    """int64 keys → ``(dst, idx)``, ``idx = -1`` where ``dst == MISS_DST``:
+    the wrapper's output."""
+    dst = (keys >> 32).to(torch.int32).view(torch.float32)
+    idx = (keys & 0xFFFFFFFF).to(torch.int32)
+    return dst, torch.where(dst < MISS_DST, idx, -1)
+
+
+# The key every ray starts from: a miss that loses every tie.
+MISS_KEY = int(pack_keys(torch.tensor(MISS_DST, dtype=torch.float32),
+                         torch.tensor(PAD_ORIG_IDX, dtype=torch.int32)))
+
+
+def range_items(first, last, n_blocks: int, split: int):
+    """Work items per packet, ``[P]`` int32: ``ceil(blocks / split)`` of the
+    span clipped to ``[0, n_blocks)``, 0 when it is empty. The plain version
+    of ``csrc/search_range.cu::range_items_kernel`` (``split = kSplit``)."""
+    lo = first.clamp(min=0)
+    hi = last.clamp(max=n_blocks - 1)
+    return ((hi - lo).div(split, rounding_mode="floor") + 1).clamp(min=0).to(torch.int32)
+
+
+def item_table(first, last, n_blocks: int, split: int, k: int):
+    """``[P, n_blocks]`` bool: the blocks of each packet's work item ``k``,
+    ``lo + k * split .. min(lo + k * split + split - 1, hi)`` of its clipped
+    span ``[lo, hi]`` (none past its last item)."""
+    start = first.clamp(min=0) + k * split
+    end = torch.minimum(last.clamp(max=n_blocks - 1), start + split - 1)
+    return range_table(start, end, n_blocks)
+
+
+def search_range_split(o, d, first, last, plane, orig_idx, split: int):
+    """Plain model of the kernel's split walk: a lex-min per work item of
+    ``split`` blocks, the items of a ray merged only through
+    :func:`pack_keys` by a minimum, from :data:`MISS_KEY`, and unpacked."""
+    n_blocks = plane.shape[1] // BLOCK
+    items = range_items(first, last, n_blocks, split)
+    keys = torch.full((o.shape[0],), MISS_KEY, dtype=torch.int64, device=o.device)
+    for k in range(int(items.max()) if items.numel() else 0):
+        dk, ik = search_blocks_reference(
+            o, d, plane, orig_idx, item_table(first, last, n_blocks, split, k))
+        keys = torch.minimum(keys, torch.where(ik >= 0, pack_keys(dk, ik), MISS_KEY))
+    return unpack_keys(keys)
+
+
 def search_range(o, d, first, last, plane, orig_idx):
     """Range packet search: ``(dst [R], idx [R])``.
 
     A CPU tensor runs :func:`search_range_reference`. A CUDA tensor launches
-    ``csrc/search_range.cu`` (building the library on first use) and counts
-    the launch in ``search_range.launches``; any other device raises.
+    ``csrc/search_range.cu`` (building the library on first use): the item
+    count, a ``torch.cumsum`` of it on the device (no host sync), the search
+    into keys filled with :data:`MISS_KEY`, and :func:`unpack_keys` (a few
+    elementwise torch ops, exact on integers, and the very code the CPU tests
+    run). It counts one launch per call in ``search_range.launches``; any
+    other device raises.
     """
     r = o.shape[0]
     shape = (n_packets(r),)
@@ -66,19 +131,41 @@ def search_range(o, d, first, last, plane, orig_idx):
     from raytracingc_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    dst = torch.empty((r,), dtype=torch.float32, device=o.device)
-    idx = torch.empty((r,), dtype=torch.int32, device=o.device)
+    n_blocks = plane.shape[1] // BLOCK
+    items = torch.empty(shape, dtype=torch.int32, device=o.device)
+    counter = torch.zeros((1,), dtype=torch.int64, device=o.device)
+    keys = torch.full((r,), MISS_KEY, dtype=torch.int64, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream
+        _build.check(lib.rtc_range_items(
+            first.data_ptr(), last.data_ptr(), ctypes.c_int(shape[0]),
+            ctypes.c_int(n_blocks), items.data_ptr(), stream,
+        ), "range_items launch")
+        ends = torch.cumsum(items, 0, dtype=torch.int64)
         code = lib.rtc_search_range(
             o.data_ptr(), d.data_ptr(), first.data_ptr(), last.data_ptr(),
-            plane.data_ptr(), orig_idx.data_ptr(), ctypes.c_int(r),
-            ctypes.c_int(plane.shape[1] // BLOCK),
-            dst.data_ptr(), idx.data_ptr(), stream,
+            ends.data_ptr(), plane.data_ptr(), orig_idx.data_ptr(),
+            ctypes.c_int(r), ctypes.c_int(n_blocks), counter.data_ptr(),
+            keys.data_ptr(), stream,
         )
     _build.check(code, "search_range launch")
     search_range.launches += 1
-    return dst, idx
+    return unpack_keys(keys)
 
 
 search_range.launches = 0
+
+
+def search_grid(device) -> tuple[int, int]:
+    """``(resident CTAs per SM, SMs)`` of the range search's persistent grid
+    on a CUDA ``device``."""
+    import ctypes
+
+    from raytracingc_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    ctas, sms = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.check(lib.rtc_search_range_grid(ctypes.byref(ctas), ctypes.byref(sms)),
+                     "search_range grid")
+    return ctas.value, sms.value

@@ -1,13 +1,16 @@
-"""Seeded packet workloads of the packet kernels (K2, K3), shared by
+"""Seeded packet workloads of the packet kernels (K2-K5), shared by
 chip_smoke.py, the tools and the tests: two ray sets in packets of 8 with
-one share of dead lanes, and the default dispatch's packet-route inputs for
-a scene. Not a tool: importing it runs nothing.
+one share of dead lanes, a third for the range kernel's widest spans, and
+the default dispatch's packet-route inputs for a scene. Not a tool:
+importing it runs nothing.
 
 * :func:`packet_rays` (coherent): a shared origin region and a shared
   direction up to a small jitter, as adjacent pixels' rays;
 * :func:`secondary_rays` (secondary-like): a shared origin region but
   independent unit directions, as the packets of compacted lanes after a
-  diffuse bounce.
+  diffuse bounce;
+* :func:`wide_span_rays`: coherent packets, some of which span the whole
+  plane.
 """
 
 from __future__ import annotations
@@ -51,6 +54,21 @@ def secondary_rays(rng, n_rays: int, lo, hi):
 
 
 RAY_SETS = {"coherent": packet_rays, "secondary": secondary_rays}
+
+
+def wide_span_rays(rng, n_rays: int, lo, hi, accel, every: int = 8):
+    """``(o, d, alive)``: :func:`packet_rays`, but in every ``every``-th
+    packet lanes 0 and 1 are alive and aim at the centres of the first and
+    the last block's boxes of ``accel``, the two ends of the Morton order:
+    those packets' block spans (ops/culling.py::packet_block_ranges) cover
+    the whole plane, and their rays' nearest hits may lie in any block."""
+    o, d, alive = packet_rays(rng, n_rays, lo, hi)
+    centre = ((accel.aabb_lo + accel.aabb_hi) / 2).cpu().numpy()
+    for lane, block in ((0, 0), (1, accel.n_blocks - 1)):
+        r = np.arange(lane, n_rays, 8 * every)
+        d[r] = _unit(centre[block] - o[r])
+        alive[r] = True
+    return o, d, alive
 
 
 def packet_inputs(scene, o, d, alive):
