@@ -53,11 +53,16 @@ TIMED_RAYS = 65536
 # independent directions, as after a diffuse bounce; they give the range
 # kernel wide spans), drawn from their own seeded generator so that the
 # coherent rays, and every later case's, are those of the runs before. The
-# WHOLE_PLANE case runs wide_span_rays instead, from that generator too:
-# every 8th packet spans the whole plane (checked), so the range kernel
-# cuts it into the most work items a packet can have, whose results meet
-# only in the keys' atomicMin (ties across items:
-# tests/test_torch_search_range.py, on the CPU model).
+# WHOLE_PLANE cases run wide_span_rays instead, from that generator too:
+# every 8th packet's list holds the plane's first and last block (checked;
+# for the range kernel, its span is the whole plane), so the range and
+# words kernels cut it into the most work items a packet can have, whose
+# results meet only in the keys' atomicMin (ties across items:
+# tests/test_torch_search_range.py and test_torch_search_words.py, on the
+# CPU models). For the range and words cases the count kernel is also held
+# to its plain model (range_items, words_items at the source's split) from
+# junk-filled buffers, its fill to MISS_KEY and its zeroed counter, and the
+# CUDA unpack to unpack_keys, on the keys of the plain version's result.
 PACKET_CASES = (
     ("K2 soup 1,600 (1 word)", "soup", 1600, {}, "bitmask"),
     ("K2 soup 10,240 (3 words)", "soup", 10240, {}, "bitmask"),
@@ -88,6 +93,10 @@ PACKET_CASES = (
      "words"),
     ("K7 box 163,840 streamed (RTC_STREAM_CULL=words)", "box", 163840,
      {"RTC_STREAM_CULL": "words"}, "words"),
+    ("K6 box 40,960 resident, whole-plane rays (RTC_STREAM_CULL=words)",
+     "box", 40960, {"RTC_STREAM_CULL": "words"}, "words"),
+    ("K7 box 163,840 streamed, whole-plane rays (RTC_STREAM_CULL=words)",
+     "box", 163840, {"RTC_STREAM_CULL": "words"}, "words"),
 )
 # Timed at R = TIMED_RAYS (kernel, plain) at the main path's shapes: {label:
 # iterations of the plain version}. The range kernels' plain version tests
@@ -102,9 +111,13 @@ TIMED_PACKET = {
     "K6 box 40,960 resident (RTC_STREAM_CULL=words)": 3,
     "K6 box 163,840 streamed (RTC_STREAM_CULL=words RTC_STREAM_ORDER=ray)": 3,
     "K7 box 163,840 streamed (RTC_STREAM_CULL=words)": 3,
+    "K6 box 40,960 resident, whole-plane rays (RTC_STREAM_CULL=words)": 1,
+    "K7 box 163,840 streamed, whole-plane rays (RTC_STREAM_CULL=words)": 1,
 }
-SECONDARY_KERNELS = ("bitmask", "packed", "range")
-WHOLE_PLANE = "K5 box 163,840 streamed, whole-plane spans (RTC_CULL=range)"
+SECONDARY_KERNELS = ("bitmask", "packed", "range", "words")
+WHOLE_PLANE = ("K5 box 163,840 streamed, whole-plane spans (RTC_CULL=range)",
+               "K6 box 40,960 resident, whole-plane rays (RTC_STREAM_CULL=words)",
+               "K7 box 163,840 streamed, whole-plane rays (RTC_STREAM_CULL=words)")
 SECONDARY_SEED = 20261017
 SECONDARY = " [secondary]"  # label suffix of a case's secondary-like timing
 
@@ -397,7 +410,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         brute_tri = pack_triangles(tris, n)
         sec_rng = np.random.default_rng([SECONDARY_SEED, case])
         ray_sets = [("", lambda n_rays: packet_rays(rng, n_rays, lo, hi))]
-        if label == WHOLE_PLANE:
+        if label in WHOLE_PLANE:
             ray_sets = [("", lambda n_rays: wide_span_rays(sec_rng, n_rays, lo,
                                                            hi, accel))]
         elif way.kernel in SECONDARY_KERNELS:
@@ -444,16 +457,17 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
             if hits < n_rays // 100:
                 raise AssertionError(f"{where}: only {hits} live rays hit")
             max_err[name] = max(max_err[name], float((dk - dr).abs().max()))
-            if way.kernel == "range":
-                span = (last - first + 1)[first <= last].float()
-                whole = int(((first == 0) & (last == accel.n_blocks - 1)).sum())
-                if label == WHOLE_PLANE and whole < n_packets(n_rays) // 16:
-                    raise AssertionError(f"{where}: only {whole} packets span "
-                                         f"the whole plane")
+            if way.kernel in ("range", "words"):
+                n_items = check_item_launches(way.kernel, args, (dr, ir), where)
+                ends = int((table[:, 0] & table[:, accel.n_blocks - 1]).sum())
+                if label in WHOLE_PLANE and ends < n_packets(n_rays) // 16:
+                    raise AssertionError(f"{where}: only {ends} packets hold the "
+                                         f"first and the last block")
+                walk = table.sum(1)[table.any(1)].float()
                 notes.append(f"R={n_rays}{suffix}: {hits} live hits, "
-                             f"{span.numel()} nonempty spans of {span.mean():.1f} "
-                             f"blocks on average, {whole} of the whole plane "
-                             f"({accel.n_blocks} blocks)")
+                             f"{walk.numel()} packets walk {walk.mean():.1f} blocks "
+                             f"on average in {n_items} work items, {ends} hold the "
+                             f"first and the last block ({accel.n_blocks} blocks)")
             else:
                 notes.append(f"R={n_rays}{suffix}: {hits} live hits, "
                              f"{int((words != 0).sum())} nonzero words, "
@@ -470,6 +484,62 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
               f"brute scan; {way.kernel} ({way.tpu}) tile={way.tile} "
               f"n_tiles={way.n_tiles} granule={way.granule}; " + "; ".join(notes))
     return timings, max_err, work
+
+
+def check_item_launches(kernel, args, plain, where) -> int:
+    """The range or words search's count kernel on this case's inputs, from
+    junk-filled buffers: its item counts equal the plain model's at the
+    source's split (range_items, words_items), its keys the packed miss
+    MISS_KEY and its claim counter 0; and the CUDA unpack equals
+    unpack_keys, and the plain result, on that result's keys. Returns the
+    item count; raises on any difference."""
+    import ctypes
+
+    import torch
+
+    from raytracingc_tpu_torch.ops import _build, search_range, search_words
+    from raytracingc_tpu_torch.ops.accel import BLOCK
+    from raytracingc_tpu_torch.ops.search_bitmask import n_packets
+
+    lib = _build.load_library()
+    o = args[0]
+    r = o.shape[0]
+    items = torch.full((n_packets(r),), -5, dtype=torch.int32, device=o.device)
+    counter = torch.full((1,), 12345, dtype=torch.int64, device=o.device)
+    keys = torch.full((r,), -7, dtype=torch.int64, device=o.device)
+    bufs = (items.data_ptr(), counter.data_ptr(), keys.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    if kernel == "range":
+        _, _, first, last, plane, _ = args
+        n_blocks = plane.shape[1] // BLOCK
+        code = lib.rtc_range_items(first.data_ptr(), last.data_ptr(), ctypes.c_int(r),
+                                   ctypes.c_int(n_blocks), *bufs)
+        want = search_range.range_items(first, last, n_blocks, search_range.SPLIT)
+    else:
+        _, _, words, _, _, tile, granule = args
+        code = lib.rtc_words_items(
+            words.data_ptr(), ctypes.c_int(r), *(ctypes.c_int(x) for x in (
+                words.shape[1], tile // BLOCK, granule)), *bufs)
+        want = search_words.words_items(words, tile // BLOCK, granule,
+                                        search_words.SPLIT)
+    _build.check(code, f"{kernel} items launch")
+    torch.cuda.synchronize()
+    if not torch.equal(items, want):
+        raise AssertionError(f"{where}: the {kernel} count kernel differs from its "
+                             f"plain model on {int((items != want).sum())} packets")
+    if not ((keys == search_range.MISS_KEY).all() and int(counter) == 0):
+        raise AssertionError(f"{where}: the {kernel} count kernel left keys other "
+                             f"than MISS_KEY or a counter other than 0")
+    dr, ir = plain
+    packed = torch.where(ir >= 0, search_range.pack_keys(dr, ir.clamp(min=0)),
+                         search_range.MISS_KEY)
+    got = search_range.unpack_keys_cuda(packed)
+    for want_d, want_i in (search_range.unpack_keys(packed), plain):
+        if not (torch.equal(got[1], want_i) and torch.equal(
+                got[0].view(torch.int32), want_d.view(torch.int32))):
+            raise AssertionError(f"{where}: the CUDA unpack differs from "
+                                 f"unpack_keys or from the plain result")
+    return int(items.sum())
 
 
 def n_bytes(*tensors) -> int:
@@ -828,7 +898,7 @@ def main() -> int:
         search_brute_reference,
     )
     from raytracingc_tpu_torch.ops.search_packed import search_packed
-    from raytracingc_tpu_torch.ops.search_range import search_grid as range_grid
+    from raytracingc_tpu_torch.ops.search_range import search_grid as item_grid
     from raytracingc_tpu_torch.ops.search_range import search_range
     from raytracingc_tpu_torch.ops.search_union import search_union
     from raytracingc_tpu_torch.ops.search_words import search_words
@@ -863,12 +933,15 @@ def main() -> int:
     packet_ptxas = "; ".join(
         f"{k}: {_build.ptxas_report(k) or 'not reported'}"
         for k in ("search_bitmask_kernel", "search_packed_kernel",
-                  "search_range_kernel"))
-    ctas, sms = range_grid(dev)
+                  "search_range_kernel", "search_words_kernel",
+                  "range_items_kernel", "words_items_kernel",
+                  "unpack_keys_kernel"))
+    grids = {k: item_grid(dev, k) for k in ("range", "words")}
     phase("build", t, f"{_build.library_path().name} built in "
           f"{time.time() - t:.2f}s (ptxas: {ptxas or 'cached library'}; "
-          f"{packet_ptxas}); search_range_kernel's persistent grid: {ctas} "
-          f"CTAs per SM x {sms} SMs")
+          f"{packet_ptxas}); persistent grids: " + ", ".join(
+              f"search_{k}_kernel {c} CTAs per SM x {n} SMs"
+              for k, (c, n) in grids.items()))
 
     # 3. Kernel vs plain, on the card: bitwise.
     t = time.time()

@@ -1,7 +1,9 @@
 // The packet walk of the bitmask (search_bitmask.cu, K2) and packed
 // (search_packed.cu, K3) kernels, designed for Hopper (sm_90a). The range
-// kernel (search_range.cu, K4 and K5) runs the same pieces (load_packet,
-// test_block, warp_lex_min) over a piece of a block span.
+// (search_range.cu, K4 and K5) and words (search_words.cu, K6 and K7)
+// kernels run the same pieces (load_packet, test_block, warp_lex_min) over
+// work items, a piece of each packet's block list, in one shared persistent
+// loop (search_items, at the end of this file).
 //
 // One warp serves one 8-ray packet. The packet's culling words are the same
 // for the whole warp, so the warp walks the packet's own set bits in
@@ -202,6 +204,111 @@ __device__ __forceinline__ void search_packet(
     dst_out[r] = out_d;
     idx_out[r] = out_d < kMissDst ? out_i : -1;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Work items (the range and words kernels). Each packet's block list is cut
+// into work items of at most kSplit blocks; a count kernel gives each packet
+// its item count, the wrapper scans the counts on the device (torch.cumsum,
+// no host sync) into `ends`, and a persistent grid (about SMs x resident
+// CTAs) of warps claims items from an atomic counter, finds an item's packet
+// by binary search over the scan, walks its blocks and merges its 8 results
+// into the rays' 64-bit keys (bits(dst) << 32) | orig_idx with atomicMin.
+// mt_distance returns either a distance >= kEpsilon or kMissDst, never NaN,
+// so dst is positive and its bits order like the floats; orig_idx <=
+// kBigIdx = 2^30. So the key orders exactly like (dst, orig_idx)
+// lexicographically, the minimum of a total order does not depend on the
+// order of the atomics, and the bits are those of one walk on every run. A
+// warp whose item misses on a ray writes nothing for it.
+
+constexpr int kItemWarps = 4;  // warps per CTA of the item search
+constexpr int kItemThreads = kItemWarps * 32;
+constexpr int kItemMinCtas = 4;  // per SM: <= 128 registers a thread
+constexpr int kCountThreads = 256;
+
+// The packed miss (kMissDst, kBigIdx): 999999.0f has the bits 0x497423F0
+// (ops/search_range.py MISS_KEY, held to this on the card).
+constexpr unsigned long long kMissKey = (0x497423F0ull << 32) | (1ull << 30);
+
+// The count kernels' other jobs, for packet p: its rays' keys start at the
+// packed miss, and thread 0 of the grid zeroes the claim counter (the search
+// launch that follows on the same stream sees both).
+__device__ __forceinline__ void reset_item_state(
+    int p, int n_rays, unsigned long long* __restrict__ counter,
+    unsigned long long* __restrict__ keys) {
+  if (p == 0) *counter = 0ull;
+#pragma unroll
+  for (int i = 0; i < kPacket; ++i) {
+    if (p * kPacket + i < n_rays) keys[p * kPacket + i] = kMissKey;
+  }
+}
+
+// The persistent loop: each warp claims item after item until the counter
+// passes ends[n_packets - 1], the total. Item j belongs to the least p with
+// ends[p] > j, as its k-th item, k = j - ends[p - 1]. `items.begin(p, k)`
+// gives a cursor over that item's blocks (global block ids of the (12,
+// t_stride) plane): next() returns the next one, or -1 after the last.
+template <typename Items>
+__device__ __forceinline__ void search_items(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const int64_t* __restrict__ ends, const float* __restrict__ plane,
+    const int32_t* __restrict__ orig_idx, int64_t t_stride, int n_rays,
+    int n_packets, const Items& items,
+    unsigned long long* __restrict__ counter,
+    unsigned long long* __restrict__ keys) {
+  const int lane = threadIdx.x & 31;
+  const int64_t total = __ldg(ends + n_packets - 1);
+  for (;;) {
+    unsigned long long claim = 0;
+    if (lane == 0) claim = atomicAdd(counter, 1ull);
+    const int64_t item =
+        static_cast<int64_t>(__shfl_sync(0xffffffffu, claim, 0));
+    if (item >= total) return;  // the whole warp
+
+    int a = 0, b = n_packets - 1;  // the least p with ends[p] > item
+    while (a < b) {
+      const int m = (a + b) >> 1;
+      if (__ldg(ends + m) > item) b = m; else a = m + 1;
+    }
+    const int p = a;
+    const int k = static_cast<int>(item - (p > 0 ? __ldg(ends + p - 1) : 0));
+    auto cur = items.begin(p, k);
+
+    const int r0 = p * kPacket;
+    Ray ray[kPacket];
+    float best_d[kPacket];
+    int32_t best_i[kPacket];
+    load_packet(o, d, r0, n_rays, ray, best_d, best_i);
+    for (int64_t blk = cur.next(); blk >= 0; blk = cur.next()) {
+      test_block(ray, plane, orig_idx, t_stride, blk, lane, best_d, best_i);
+    }
+    float out_d;
+    int32_t out_i;
+    warp_lex_min(best_d, best_i, lane, out_d, out_i);
+    const int r = r0 + lane;
+    if (lane < kPacket && r < n_rays && out_d < kMissDst) {
+      const unsigned long long key =
+          (static_cast<unsigned long long>(__float_as_uint(out_d)) << 32) |
+          static_cast<uint32_t>(out_i);
+      atomicMin(keys + r, key);
+    }
+  }
+}
+
+// The persistent grid of an item search kernel: resident CTAs of
+// kItemThreads per SM, and SMs.
+template <typename Kernel>
+cudaError_t item_grid(Kernel kernel, int* ctas_per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel,
+                                                        kItemThreads, 0);
+  }
+  return err;
 }
 
 }  // namespace rtc

@@ -40,21 +40,15 @@
 // triangles l, l + 32, l + 64, l + 96 of each block against all 8 (one
 // coalesced load of a triangle serves 8 tests), so no lane idles on another
 // packet's span. (2) Each clipped span is cut into work items of at most
-// kSplit blocks, one warp walk each: range_items_kernel counts each packet's
-// items, the wrapper scans the counts (torch.cumsum, on the device), and a
-// persistent grid (about SMs x resident CTAs) of warps claims items from an
-// atomic counter, finds an item's packet by binary search over the scan,
-// walks its blocks and merges its 8 results into the rays' 64-bit keys
-// (bits(dst) << 32) | orig_idx with atomicMin. mt_distance returns either
-// a distance >= kEpsilon or kMissDst, never NaN, so dst is positive and its
-// bits order like the floats; orig_idx <= kBigIdx = 2^30. So the key orders
-// exactly like (dst, orig_idx) lexicographically, the minimum of a total
-// order does not depend on the order of the atomics, and the bits are those
-// of one walk on every run. The wrapper fills the keys with the packed miss
-// (kMissDst, kBigIdx) and unpacks them with torch ops (ops/search_range.py::
-// unpack_keys). A warp whose item misses on a ray writes nothing for it.
-// Left out as TPU aids that change no result: the per-program dead flags
-// and the SMEM ray slicing.
+// kSplit blocks, walked by packet_walk.cuh's persistent loop
+// (rtc::search_items, shared with the words kernel): range_items_kernel
+// counts each packet's items (and fills the keys with the packed miss and
+// zeroes the claim counter), the wrapper scans the counts (torch.cumsum, on
+// the device), the search merges each item's results into the rays' 64-bit
+// keys with atomicMin, and unpack_keys_kernel turns the keys into (dst, idx)
+// (ops/search_range.py::unpack_keys is its plain version). The words
+// wrapper runs the same unpack. Left out as TPU aids that change no result:
+// the per-program dead flags and the SMEM ray slicing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,30 +60,44 @@ namespace {
 // Blocks per work item. A/B on the H100 at 8 / 16 / 32 / 64 (PERF.md, the
 // K4/K5 redesign).
 constexpr int kSplit = 16;
-constexpr int kWarps = 4;                 // warps per CTA of the search
-constexpr int kThreads = kWarps * 32;
-constexpr int kMinCtas = 4;               // per SM: <= 128 registers a thread
-constexpr int kCountThreads = 256;
 
 // items[p]: the work items of packet p's clipped span, ceil(blocks / kSplit)
-// (0 for an empty span or one past the plane).
-__global__ void __launch_bounds__(kCountThreads)
-range_items_kernel(const int32_t* __restrict__ first,  // [P]
-                   const int32_t* __restrict__ last,   // [P]
-                   int n_packets, int n_blocks,
-                   int32_t* __restrict__ items) {       // [P]
-  const int p = blockIdx.x * kCountThreads + threadIdx.x;
+// (0 for an empty span or one past the plane); also resets the keys and the
+// claim counter (rtc::reset_item_state).
+__global__ void __launch_bounds__(rtc::kCountThreads)
+range_items_kernel(const int32_t* __restrict__ first,   // [P]
+                   const int32_t* __restrict__ last,    // [P]
+                   int n_rays, int n_packets, int n_blocks,
+                   int32_t* __restrict__ items,          // [P]
+                   unsigned long long* __restrict__ counter,  // [1]
+                   unsigned long long* __restrict__ keys) {   // [R]
+  const int p = blockIdx.x * rtc::kCountThreads + threadIdx.x;
   if (p >= n_packets) return;
+  rtc::reset_item_state(p, n_rays, counter, keys);
   const int lo = max(first[p], 0);
   const int hi = min(last[p], n_blocks - 1);
   items[p] = hi >= lo ? (hi - lo) / kSplit + 1 : 0;
 }
 
-// Persistent warps: each claims item after item until the counter passes
-// ends[n_packets - 1], the total. Item j of packet p (ends[p - 1] <= j <
-// ends[p]) covers the blocks lo + k * kSplit .. min(lo + k * kSplit +
-// kSplit - 1, hi), k = j - ends[p - 1], of p's clipped span [lo, hi].
-__global__ void __launch_bounds__(kThreads, kMinCtas)
+// Item k of packet p covers the blocks lo + k * kSplit .. min(lo + k *
+// kSplit + kSplit - 1, hi) of p's clipped span [lo, hi].
+struct SpanItems {
+  const int32_t* first;
+  const int32_t* last;
+  int n_blocks;
+
+  struct Cursor {
+    int blk, hi;
+    __device__ __forceinline__ int64_t next() { return blk <= hi ? blk++ : -1; }
+  };
+
+  __device__ __forceinline__ Cursor begin(int p, int k) const {
+    const int lo = max(__ldg(first + p), 0) + k * kSplit;
+    return {lo, min(min(__ldg(last + p), n_blocks - 1), lo + kSplit - 1)};
+  }
+};
+
+__global__ void __launch_bounds__(rtc::kItemThreads, rtc::kItemMinCtas)
 search_range_kernel(const float* __restrict__ o,              // [R, 3]
                     const float* __restrict__ d,              // [R, 3]
                     const int32_t* __restrict__ first,        // [P]
@@ -100,82 +108,55 @@ search_range_kernel(const float* __restrict__ o,              // [R, 3]
                     int n_rays, int n_packets, int n_blocks,
                     unsigned long long* __restrict__ counter, // [1], 0
                     unsigned long long* __restrict__ keys) {  // [R]
-  const int lane = threadIdx.x & 31;
-  const int64_t total = __ldg(ends + n_packets - 1);
-  const int64_t t_stride = static_cast<int64_t>(n_blocks) * rtc::kBlock;
-  for (;;) {
-    unsigned long long claim = 0;
-    if (lane == 0) claim = atomicAdd(counter, 1ull);
-    const int64_t item =
-        static_cast<int64_t>(__shfl_sync(0xffffffffu, claim, 0));
-    if (item >= total) return;  // the whole warp
-
-    int a = 0, b = n_packets - 1;  // the least p with ends[p] > item
-    while (a < b) {
-      const int m = (a + b) >> 1;
-      if (__ldg(ends + m) > item) b = m; else a = m + 1;
-    }
-    const int p = a;
-    const int k = static_cast<int>(item - (p > 0 ? __ldg(ends + p - 1) : 0));
-    const int lo = max(__ldg(first + p), 0) + k * kSplit;
-    const int hi = min(min(__ldg(last + p), n_blocks - 1), lo + kSplit - 1);
-
-    const int r0 = p * rtc::kPacket;
-    rtc::Ray ray[rtc::kPacket];
-    float best_d[rtc::kPacket];
-    int32_t best_i[rtc::kPacket];
-    rtc::load_packet(o, d, r0, n_rays, ray, best_d, best_i);
-    for (int blk = lo; blk <= hi; ++blk) {
-      rtc::test_block(ray, plane, orig_idx, t_stride, blk, lane, best_d,
-                      best_i);
-    }
-    float out_d;
-    int32_t out_i;
-    rtc::warp_lex_min(best_d, best_i, lane, out_d, out_i);
-    const int r = r0 + lane;
-    if (lane < rtc::kPacket && r < n_rays && out_d < rtc::kMissDst) {
-      const unsigned long long key =
-          (static_cast<unsigned long long>(__float_as_uint(out_d)) << 32) |
-          static_cast<uint32_t>(out_i);
-      atomicMin(keys + r, key);
-    }
-  }
+  rtc::search_items(o, d, ends, plane, orig_idx,
+                    static_cast<int64_t>(n_blocks) * rtc::kBlock, n_rays,
+                    n_packets, SpanItems{first, last, n_blocks}, counter,
+                    keys);
 }
 
-// The persistent grid: SMs x resident CTAs of search_range_kernel.
-cudaError_t search_grid(int* ctas_per_sm, int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas_per_sm, search_range_kernel, kThreads, 0);
-  }
-  return err;
+// (dst, idx) of each ray's key; idx -1 where dst is the miss.
+__global__ void __launch_bounds__(rtc::kCountThreads)
+unpack_keys_kernel(const unsigned long long* __restrict__ keys,  // [R]
+                   int n, float* __restrict__ dst,               // [R]
+                   int32_t* __restrict__ idx) {                  // [R]
+  const int r = blockIdx.x * rtc::kCountThreads + threadIdx.x;
+  if (r >= n) return;
+  const unsigned long long key = keys[r];
+  const float dr = __uint_as_float(static_cast<uint32_t>(key >> 32));
+  dst[r] = dr;
+  idx[r] = dr < rtc::kMissDst ? static_cast<int32_t>(static_cast<uint32_t>(key))
+                              : -1;
+}
+
+int count_blocks(int n) {
+  return (n + rtc::kCountThreads - 1) / rtc::kCountThreads;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Counts each packet's work items into items [n_packets] (int32) on
-// `stream`; returns cudaGetLastError() as an int (0 = launched).
-int rtc_range_items(const void* first, const void* last, int n_packets,
-                    int n_blocks, void* items, void* stream) {
-  if (n_packets <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (n_packets + kCountThreads - 1) / kCountThreads;
-  range_items_kernel<<<blocks, kCountThreads, 0,
+// Counts each packet's work items into items [ceil(n_rays / 8)] (int32),
+// fills keys [n_rays] (int64) with the packed miss and zeroes counter [1]
+// (int64), on `stream`; returns cudaGetLastError() as an int (0 =
+// launched).
+int rtc_range_items(const void* first, const void* last, int n_rays,
+                    int n_blocks, void* items, void* counter, void* keys,
+                    void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const int n_packets = (n_rays + rtc::kPacket - 1) / rtc::kPacket;
+  range_items_kernel<<<count_blocks(n_packets), rtc::kCountThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(first), static_cast<const int32_t*>(last),
-      n_packets, n_blocks, static_cast<int32_t*>(items));
+      n_rays, n_packets, n_blocks, static_cast<int32_t*>(items),
+      static_cast<unsigned long long*>(counter),
+      static_cast<unsigned long long*>(keys));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches the search on `stream`: ends [ceil(n_rays / 8)] int64 is the
-// inclusive scan of rtc_range_items' counts, counter [1] int64 is 0, keys
-// [n_rays] int64 hold the packed miss and receive each ray's packed lex-min.
+// inclusive scan of rtc_range_items' counts, and counter and keys are as
+// rtc_range_items left them; keys receive each ray's packed lex-min.
 // Returns cudaGetLastError() as an int (0 = launched).
 int rtc_search_range(const void* o, const void* d, const void* first,
                      const void* last, const void* ends, const void* plane,
@@ -183,9 +164,10 @@ int rtc_search_range(const void* o, const void* d, const void* first,
                      void* counter, void* keys, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   int ctas_per_sm = 0, sms = 0;
-  const cudaError_t err = search_grid(&ctas_per_sm, &sms);
+  const cudaError_t err =
+      rtc::item_grid(search_range_kernel, &ctas_per_sm, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  search_range_kernel<<<ctas_per_sm * sms, kThreads, 0,
+  search_range_kernel<<<ctas_per_sm * sms, rtc::kItemThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const int32_t*>(first), static_cast<const int32_t*>(last),
@@ -198,9 +180,23 @@ int rtc_search_range(const void* o, const void* d, const void* first,
 }
 
 // The search's persistent grid on the current device: resident CTAs per SM
-// (of kThreads threads) and SMs. Returns a cudaError_t as an int.
+// (of rtc::kItemThreads threads) and SMs. Returns a cudaError_t as an int.
 int rtc_search_range_grid(int* ctas_per_sm, int* sms) {
-  return static_cast<int>(search_grid(ctas_per_sm, sms));
+  return static_cast<int>(
+      rtc::item_grid(search_range_kernel, ctas_per_sm, sms));
+}
+
+// Unpacks keys [n] (int64) of the range and words searches into dst [n]
+// (float32) and idx [n] (int32, -1 on a miss) on `stream`; returns
+// cudaGetLastError() as an int (0 = launched).
+int rtc_unpack_keys(const void* keys, int n, void* dst, void* idx,
+                    void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  unpack_keys_kernel<<<count_blocks(n), rtc::kCountThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(keys), n,
+      static_cast<float*>(dst), static_cast<int32_t*>(idx));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -45,10 +45,13 @@ _SIGNATURES = {
     "rtc_search_brute": ([_VOID_P] * 4 + [_INT, _INT] + [_VOID_P] * 3, _INT),
     "rtc_search_bitmask": ([_VOID_P] * 5 + [_INT] * 3 + [_VOID_P] * 3, _INT),
     "rtc_search_packed": ([_VOID_P] * 5 + [_INT] * 5 + [_VOID_P] * 3, _INT),
-    "rtc_range_items": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] * 2, _INT),
+    "rtc_range_items": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] * 4, _INT),
     "rtc_search_range": ([_VOID_P] * 7 + [_INT] * 2 + [_VOID_P] * 3, _INT),
     "rtc_search_range_grid": ([_VOID_P] * 2, _INT),
-    "rtc_search_words": ([_VOID_P] * 5 + [_INT] * 4 + [_VOID_P] * 3, _INT),
+    "rtc_unpack_keys": ([_VOID_P, _INT] + [_VOID_P] * 3, _INT),
+    "rtc_words_items": ([_VOID_P] + [_INT] * 4 + [_VOID_P] * 4, _INT),
+    "rtc_search_words": ([_VOID_P] * 6 + [_INT] * 4 + [_VOID_P] * 3, _INT),
+    "rtc_search_words_grid": ([_VOID_P] * 2, _INT),
     "rtc_search_mxu": ([_VOID_P] * 7 + [_INT] * 4 + [_VOID_P] * 3, _INT),
     "rtc_search_union": ([_VOID_P] * 6 + [_INT] * 3 + [_VOID_P] * 3, _INT),
     "rtc_smem_probe": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] * 2, _INT),

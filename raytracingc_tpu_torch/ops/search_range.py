@@ -20,11 +20,16 @@ not masked (see ``search_bitmask``). Returns ``dst [R]`` float32 and ``idx
 [R]`` int32 (-1 on a miss).
 
 The kernel cuts each packet's clipped span into work items of at most
-``kSplit`` blocks (a constant of the source), walks each item in one warp
-and merges the items of a ray through a 64-bit key, ``bits(dst) << 32 |
-orig_idx`` (:func:`pack_keys`), with ``atomicMin``. :func:`range_items` and
+``kSplit`` = :data:`SPLIT` blocks, walks each item in one warp and merges
+the items of a ray through a 64-bit key, ``bits(dst) << 32 | orig_idx``
+(:func:`pack_keys`), with ``atomicMin``. :func:`range_items` and
 :func:`search_range_split` are the plain model of that work list and split
 walk at any split: the tests hold the model to :func:`search_range_reference`.
+:func:`item_search` is the launch sequence that the range and words
+wrappers share: the count kernel (which also fills the keys with
+:data:`MISS_KEY` and zeroes the claim counter), a ``torch.cumsum`` of the
+counts, the search, and :func:`unpack_keys_cuda`, the CUDA unpack whose
+plain version is :func:`unpack_keys`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from raytracingc_tpu_torch.ops.search_bitmask import (
     search_blocks_reference,
 )
 from raytracingc_tpu_torch.scene.types import MISS_DST
+
+SPLIT = 16  # kSplit of csrc/search_range.cu: blocks per work item
 
 
 def range_table(first, last, n_blocks: int):
@@ -110,12 +117,9 @@ def search_range(o, d, first, last, plane, orig_idx):
     """Range packet search: ``(dst [R], idx [R])``.
 
     A CPU tensor runs :func:`search_range_reference`. A CUDA tensor launches
-    ``csrc/search_range.cu`` (building the library on first use): the item
-    count, a ``torch.cumsum`` of it on the device (no host sync), the search
-    into keys filled with :data:`MISS_KEY`, and :func:`unpack_keys` (a few
-    elementwise torch ops, exact on integers, and the very code the CPU tests
-    run). It counts one launch per call in ``search_range.launches``; any
-    other device raises.
+    ``csrc/search_range.cu`` (building the library on first use) through
+    :func:`item_search` and counts one launch per call in
+    ``search_range.launches``; any other device raises.
     """
     r = o.shape[0]
     shape = (n_packets(r),)
@@ -128,37 +132,68 @@ def search_range(o, d, first, last, plane, orig_idx):
 
     import ctypes
 
-    from raytracingc_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    n_blocks = plane.shape[1] // BLOCK
-    items = torch.empty(shape, dtype=torch.int32, device=o.device)
-    counter = torch.zeros((1,), dtype=torch.int64, device=o.device)
-    keys = torch.full((r,), MISS_KEY, dtype=torch.int64, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        _build.check(lib.rtc_range_items(
-            first.data_ptr(), last.data_ptr(), ctypes.c_int(shape[0]),
-            ctypes.c_int(n_blocks), items.data_ptr(), stream,
-        ), "range_items launch")
-        ends = torch.cumsum(items, 0, dtype=torch.int64)
-        code = lib.rtc_search_range(
+    n_blocks = ctypes.c_int(plane.shape[1] // BLOCK)
+    out = item_search(
+        o, "search_range",
+        lambda lib, items, counter, keys, stream: lib.rtc_range_items(
+            first.data_ptr(), last.data_ptr(), ctypes.c_int(r), n_blocks,
+            items.data_ptr(), counter.data_ptr(), keys.data_ptr(), stream),
+        lambda lib, ends, counter, keys, stream: lib.rtc_search_range(
             o.data_ptr(), d.data_ptr(), first.data_ptr(), last.data_ptr(),
             ends.data_ptr(), plane.data_ptr(), orig_idx.data_ptr(),
-            ctypes.c_int(r), ctypes.c_int(n_blocks), counter.data_ptr(),
-            keys.data_ptr(), stream,
-        )
-    _build.check(code, "search_range launch")
+            ctypes.c_int(r), n_blocks, counter.data_ptr(), keys.data_ptr(),
+            stream))
     search_range.launches += 1
-    return unpack_keys(keys)
+    return out
 
 
 search_range.launches = 0
 
 
-def search_grid(device) -> tuple[int, int]:
-    """``(resident CTAs per SM, SMs)`` of the range search's persistent grid
-    on a CUDA ``device``."""
+def item_search(o, what: str, count, search):
+    """The CUDA launch sequence of the work-item searches (range, words) on
+    ``o``'s card: ``count(lib, items, counter, keys, stream)`` launches the
+    count kernel, which writes each packet's item count into ``items`` and
+    fills ``keys`` with :data:`MISS_KEY` and ``counter`` with 0; ``ends``,
+    the counts' ``torch.cumsum`` (on the device: no host sync);
+    ``search(lib, ends, counter, keys, stream)`` launches the search; the
+    keys go through :func:`unpack_keys_cuda`. Returns ``(dst, idx)``."""
+    from raytracingc_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    r = o.shape[0]
+    items = torch.empty((n_packets(r),), dtype=torch.int32, device=o.device)
+    counter = torch.empty((1,), dtype=torch.int64, device=o.device)
+    keys = torch.empty((r,), dtype=torch.int64, device=o.device)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        _build.check(count(lib, items, counter, keys, stream), f"{what} items launch")
+        ends = torch.cumsum(items, 0, dtype=torch.int64)
+        _build.check(search(lib, ends, counter, keys, stream), f"{what} launch")
+    return unpack_keys_cuda(keys)
+
+
+def unpack_keys_cuda(keys):
+    """:func:`unpack_keys` of int64 CUDA ``keys`` by ``csrc/search_range.cu``'s
+    unpack kernel (one launch): ``(dst, idx)``, the same bits."""
+    import ctypes
+
+    from raytracingc_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    n = keys.shape[0]
+    dst = torch.empty((n,), dtype=torch.float32, device=keys.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    with torch.cuda.device(keys.device):
+        _build.check(lib.rtc_unpack_keys(
+            keys.data_ptr(), ctypes.c_int(n), dst.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(keys.device).cuda_stream), "unpack_keys launch")
+    return dst, idx
+
+
+def search_grid(device, kernel: str) -> tuple[int, int]:
+    """``(resident CTAs per SM, SMs)`` of the persistent grid of the
+    ``kernel="range"`` or ``"words"`` search on a CUDA ``device``."""
     import ctypes
 
     from raytracingc_tpu_torch.ops import _build
@@ -166,6 +201,6 @@ def search_grid(device) -> tuple[int, int]:
     lib = _build.load_library()
     ctas, sms = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        _build.check(lib.rtc_search_range_grid(ctypes.byref(ctas), ctypes.byref(sms)),
-                     "search_range grid")
+        _build.check(getattr(lib, f"rtc_search_{kernel}_grid")(
+            ctypes.byref(ctas), ctypes.byref(sms)), f"search_{kernel} grid")
     return ctas.value, sms.value

@@ -2,7 +2,8 @@
 raytracingc_tpu_torch.tools.<name>``: ``union_walk_ab`` (K9, program-level
 union culling against the production search), ``smem_probe`` (K10, the
 largest shared-memory table a kernel can hold), ``packet_sweep`` (the
-packet kernels K2, K3 and the range kernel K4, K5 timed on their ray sets)
+packet kernels K2, K3, the range kernel K4, K5 and the words kernel K6, K7
+timed on their ray sets)
 and ``chunk_profile``
 (where one pixel chunk's device time goes). ``packets`` holds the seeded
 packet workloads they, chip_smoke.py and the tests share. Importing one runs

@@ -1,14 +1,18 @@
-"""Packet-kernel timing (K2-K5): the bitmask, packed and range wrappers over
-the timed scenes and their ray sets.
+"""Packet-kernel timing (K2-K7): the bitmask, packed, range and words
+wrappers over the timed scenes and their ray sets.
 
-Times the bitmask (K2), packed (K3) and range (K4, K5) wrappers by CUDA
-events on chip_smoke.py's timed packet scenes (box_scene tessellated to
-10,240, 40,960 and 163,840 triangles: bitmask, packed resident, packed
-streamed; 40,960 and 163,840 under ``RTC_CULL=range``: range resident and
-streamed) at ``--rays`` rays, on the coherent and the secondary-like
-packets of ``tools/packets.py``, and the range scenes also on packets of
-which some span the whole plane (``wide_span_rays``). Each wrapper must
-equal its plain version bit for bit.
+Times the bitmask (K2), packed (K3), range (K4, K5) and words (K6, K7)
+wrappers by CUDA events on chip_smoke.py's timed packet scenes (box_scene
+tessellated to 10,240, 40,960 and 163,840 triangles: bitmask, packed
+resident, packed streamed; 40,960 and 163,840 under ``RTC_CULL=range``:
+range resident and streamed, and under ``RTC_STREAM_CULL=words``: words
+resident K6 and streamed K7) at ``--rays`` rays, on the coherent and the
+secondary-like packets of ``tools/packets.py``, and the range and words
+scenes also on packets of which some span the whole plane
+(``wide_span_rays``). Each wrapper must equal its plain version bit for
+bit. On the words scenes it also times K3's kernel on the same words (one
+word per tile): one warp per packet walking the packet's whole list, with
+no work items, the yardstick of the words kernel's split.
 
 It needs nothing newer than the package's first packet and range kernels,
 so this file, ``tools/packets.py`` and ``tools/__init__.py`` can be copied
@@ -46,6 +50,10 @@ from raytracingc_tpu_torch.ops.search_range import (
     search_range,
     search_range_reference,
 )
+from raytracingc_tpu_torch.ops.search_words import (
+    search_words,
+    search_words_reference,
+)
 from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
 from raytracingc_tpu_torch.tools.packets import (
     DEAD,
@@ -56,20 +64,48 @@ from raytracingc_tpu_torch.tools.packets import (
 from raytracingc_tpu_torch.tools.union_walk_ab import BOX_SCENE, load_scene
 
 # (label, box_scene tessellation levels, knobs) of chip_smoke.py's timed
-# K2-K5 cases.
+# K2-K7 cases.
 RANGE = {"RTC_CULL": "range"}
+WORDS = {"RTC_STREAM_CULL": "words"}
 SCENES = (("K2 box 10,240", 5, {}), ("K3 box 40,960 resident", 6, {}),
           ("K3 box 163,840 streamed", 7, {}),
           ("K4 box 40,960 (RTC_CULL=range)", 6, RANGE),
-          ("K5 box 163,840 streamed (RTC_CULL=range)", 7, RANGE))
+          ("K5 box 163,840 streamed (RTC_CULL=range)", 7, RANGE),
+          ("K6 box 40,960 resident (RTC_STREAM_CULL=words)", 6, WORDS),
+          ("K7 box 163,840 streamed (RTC_STREAM_CULL=words)", 7, WORDS))
 BOX_ORIGINS = ((-5.0, -5.0, -5.0), (5.0, 1.5, 5.0))  # inside box_scene's room
+
+
+def words_inputs(scene, o, d, alive):
+    """``(route, words, plane, orig_idx)`` of the dispatch's words route."""
+    accel = scene.accel
+    way = search.route(scene.n_triangles, accel.n_blocks, search.Knobs.read())
+    words = culling.packet_tile_words(*culling.packets(o, d, alive), accel,
+                                      way.n_tiles, way.tile // BLOCK, way.granule)
+    plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx, way.tile)
+    return way, words, plane, oi
+
+
+def packet_walk_call(scene, o, d, alive):
+    """K3's kernel (``search_packed``) on the words route's inputs, one word
+    per tile: the same blocks walked by one warp per packet, unsplit."""
+    way, words, plane, oi = words_inputs(scene, o, d, alive)
+    words = words[..., None].contiguous()
+    return lambda: search_packed(o, d, words, plane, oi, way.tile, way.granule)
 
 
 def case_calls(scene, o, d, alive):
     """``(route, wrapper call, plain call, tested pairs)`` of the dispatch's
-    packet or range route for these rays on ``scene``."""
+    packet, range or words route for these rays on ``scene``."""
     accel = scene.accel
     way = search.route(scene.n_triangles, accel.n_blocks, search.Knobs.read())
+    if way.kernel == "words":
+        way, words, plane, oi = words_inputs(scene, o, d, alive)
+        args = (o, d, words, plane, oi, way.tile, way.granule)
+        table = packed_table(words[..., None], way.tile // BLOCK, way.granule)
+        return (way, lambda: search_words(*args),
+                lambda: search_words_reference(*args),
+                int(table.sum()) * culling.RAY_SUBLANES * BLOCK)
     if way.kernel == "range":
         first, last = culling.packet_block_ranges(*culling.packets(o, d, alive), accel)
         plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx,
@@ -116,7 +152,7 @@ def main(argv: list[str] | None = None) -> int:
             continue
         scene = load_scene(BOX_SCENE, levels, dev)
         ray_sets = dict(RAY_SETS)
-        if knobs is RANGE:
+        if knobs:  # the range and words scenes
             ray_sets["whole-plane"] = lambda *a: wide_span_rays(*a, scene.accel)
         for set_name, make in ray_sets.items():
             o, d, alive = (torch.from_numpy(x).to(dev)
@@ -133,6 +169,17 @@ def main(argv: list[str] | None = None) -> int:
                   f"n_tiles={way.n_tiles} granule={way.granule}; {pairs} tested "
                   f"pairs): wrapper {cuda_ms(wrapper, args.iters):.4f} ms",
                   flush=True)
+            if way.kernel == "words":
+                with knobs_set(knobs):
+                    unsplit = packet_walk_call(scene, o, d, alive)
+                pk_d, pk_i = unsplit()
+                if not (torch.equal(pk_i, ref_i) and torch.equal(
+                        pk_d.view(torch.int32), ref_d.view(torch.int32))):
+                    raise AssertionError(f"{label} {set_name}: K3's kernel on the "
+                                         f"words differs from the plain version")
+                print(f"[wrappers] {label} {set_name}: K3's kernel on these words "
+                      f"(one warp per packet, unsplit) {cuda_ms(unsplit, args.iters):.4f} ms",
+                      flush=True)
     return 0
 
 

@@ -1,8 +1,8 @@
-"""Seeded packet workloads of the packet kernels (K2-K5), shared by
+"""Seeded packet workloads of the packet kernels (K2-K7), shared by
 chip_smoke.py, the tools and the tests: two ray sets in packets of 8 with
-one share of dead lanes, a third for the range kernel's widest spans, and
-the default dispatch's packet-route inputs for a scene. Not a tool:
-importing it runs nothing.
+one share of dead lanes, a third for the range and words kernels' longest
+walks, and the default dispatch's packet-route inputs for a scene. Not a
+tool: importing it runs nothing.
 
 * :func:`packet_rays` (coherent): a shared origin region and a shared
   direction up to a small jitter, as adjacent pixels' rays;
@@ -10,7 +10,7 @@ importing it runs nothing.
   independent unit directions, as the packets of compacted lanes after a
   diffuse bounce;
 * :func:`wide_span_rays`: coherent packets, some of which span the whole
-  plane.
+  plane (their lists hold the plane's first and last block).
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 ``csrc/search_range.cu`` cuts each packet's clipped block span into work
 items of at most ``kSplit`` blocks, walks each item in one warp and merges a
 ray's items through a 64-bit key ``bits(dst) << 32 | orig_idx`` with
-``atomicMin``; the wrapper fills the keys with ``MISS_KEY`` and unpacks them
-with ``unpack_keys``. The kernel runs only on the card, so these tests hold
+``atomicMin``; its count kernel fills the keys with ``MISS_KEY``, and a CUDA
+unpack whose plain version is ``unpack_keys`` turns them into the wrapper's
+output (both held to these on the card by chip_smoke.py). The kernel runs
+only on the card, so these tests hold
 its plain model (``ops/search_range.py``: ``range_items``, ``item_table``,
 ``search_range_split``) and the wrapper's key helpers on the CPU:
 
