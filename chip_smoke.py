@@ -122,8 +122,12 @@ SECONDARY_SEED = 20261017
 SECONDARY = " [secondary]"  # label suffix of a case's secondary-like timing
 
 # Phase 3c: the MXU kernel (K8) against its plain version in both
-# precisions, its live-lane winners against the brute scan, and the slicing
-# check, at R in PHASE3_RAYS with DEAD dead lanes. (label, scene,
+# precisions, its live-lane winners against the brute scan, the slicing
+# check and two runs bitwise equal, at R in PHASE3_RAYS with DEAD dead
+# lanes (coherent packets) and at TIMED_RAYS on secondary-like packets; its
+# pack kernel against mxu_fragments bit for bit, its count kernel against
+# mxu_items from junk-filled buffers, and the CUDA unpack with the dead
+# lanes against unpack_keys. (label, scene,
 # live triangles): box_scene and its tessellations in the kernel's range,
 # and a seeded soup at the kernel's cap. The contract (PERF.md): dead lanes
 # exactly (MISS_DST, -1); winners equal except flips at a validity boundary
@@ -152,14 +156,20 @@ MXU_KAPPA_CAP = 128.0  # the distance bound never passes 2^-13 (1.22e-4)
 MXU_CONTROL = "soup 8,192 (64 blocks, 3 words)"  # the case with grazing hits
 MXU_PLAIN_CHUNK = 64  # (program, block) pairs per step of the plain version
 
-# Phase 3d: the union-walk kernel (K9) against its plain version and, on
-# live lanes, the default route (K2), bit for bit; timed beside K2 (and K8
-# where the scene fits it) on the same rays.
+# Phase 3d: the union-walk kernel (K9, the words kernel with one word row
+# per program) against its plain version and, on live lanes, the brute
+# scan, bit for bit, on coherent and secondary-like rays; timed beside K2
+# (and K8 where the scene fits it) on the same rays.
 UNION_CASES = (
     ("box 2,560 (--tessellate 4)", "box", 2560),
     ("box 10,240 (--tessellate 5)", "box", 10240),
 )
 UNION_TIMED = "box 10,240 (--tessellate 5)"  # the union tool's scene
+
+# The kernels whose ptxas report must show no spills (the build fails the
+# smoke otherwise): the item searches, K8's and the words kernel K9 runs.
+NO_SPILLS = ("search_range_kernel", "search_words_kernel", "search_mxu_kernel",
+             "mxu_pack_kernel", "mxu_items_kernel")
 
 # Bounds: the larger of the operations over the card's peak rate for their
 # type and the bytes over its memory rate (H100 SXM at 700 W). FP32
@@ -310,35 +320,15 @@ def packet_scene(rng, kind: str, n_live: int):
     """``(Triangles, n_live, ray origin box)``: a soup of triangles (every
     7th duplicating an earlier one, so that equal distances occur) in a
     12-unit cube, or box_scene tessellated to ``n_live`` triangles."""
-    import numpy as np
-
-    from raytracingc_tpu_torch.scene.builder import (
-        scene_from_triangles_txt,
-        tessellate,
-        triangles_from_arrays,
-    )
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt, tessellate
+    from raytracingc_tpu_torch.tools.packets import SOUP_ORIGINS, soup_scene
 
     if kind == "box":
         scene = scene_from_triangles_txt(BOX_SCENE)
         levels = {10 * 4**k: k for k in range(9)}[n_live]
         tris, n = tessellate(scene.triangles, scene.n_triangles, levels=levels)
         return tris, n, ((-5.0, -5.0, -5.0), (5.0, 1.5, 5.0))
-    # Edges shrink as the count grows, so that every soup has about the
-    # same surface area and most rays hit.
-    edge = 0.15 * (163840 / n_live) ** 0.5
-    a = rng.uniform(-6, 6, (n_live, 3))
-    b = a + rng.normal(size=(n_live, 3)) * edge
-    c = a + rng.normal(size=(n_live, 3)) * edge
-    verts = np.stack([a, b, c], axis=1).astype(np.float32)
-    dup = np.arange(7, n_live, 7)
-    verts[dup] = verts[dup // 2]
-    nrm = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
-    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
-    nrm[::2] *= -1.0  # both backface-cull outcomes
-    tris, n = triangles_from_arrays(
-        verts, nrm.astype(np.float32), np.full((n_live, 3), 0.5, np.float32),
-        np.zeros(n_live, np.float32), np.zeros(n_live, np.float32))
-    return tris, n, ((-8.0, -8.0, -8.0), (8.0, 8.0, 8.0))
+    return (*soup_scene(rng, n_live), SOUP_ORIGINS)
 
 
 def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
@@ -519,7 +509,7 @@ def check_item_launches(kernel, args, plain, where) -> int:
         _, _, words, _, _, tile, granule = args
         code = lib.rtc_words_items(
             words.data_ptr(), ctypes.c_int(r), *(ctypes.c_int(x) for x in (
-                words.shape[1], tile // BLOCK, granule)), *bufs)
+                words.shape[1], tile // BLOCK, granule, 1)), *bufs)
         want = search_words.words_items(words, tile // BLOCK, granule,
                                         search_words.SPLIT)
     _build.check(code, f"{kernel} items launch")
@@ -530,16 +520,36 @@ def check_item_launches(kernel, args, plain, where) -> int:
     if not ((keys == search_range.MISS_KEY).all() and int(counter) == 0):
         raise AssertionError(f"{where}: the {kernel} count kernel left keys other "
                              f"than MISS_KEY or a counter other than 0")
+    check_unpack(plain, None, where)
+    return int(items.sum())
+
+
+def check_unpack(plain, alive, where) -> None:
+    """The CUDA unpack on the keys of the plain result ``(dst, idx)`` (dead
+    lanes, where ``alive`` is False, already (MISS_DST, -1)) equals
+    unpack_keys with the dead-lane rule, and the plain result; raises
+    otherwise."""
+    import torch
+
+    from raytracingc_tpu_torch.ops import search_range
+    from raytracingc_tpu_torch.scene.types import MISS_DST
+
     dr, ir = plain
     packed = torch.where(ir >= 0, search_range.pack_keys(dr, ir.clamp(min=0)),
                          search_range.MISS_KEY)
-    got = search_range.unpack_keys_cuda(packed)
-    for want_d, want_i in (search_range.unpack_keys(packed), plain):
-        if not (torch.equal(got[1], want_i) and torch.equal(
-                got[0].view(torch.int32), want_d.view(torch.int32))):
+    if alive is not None:  # dead lanes' keys hold junk hits: the rule drops them
+        packed = torch.where(alive, packed, search_range.pack_keys(
+            torch.full_like(dr, 1.5), torch.zeros_like(ir)))
+    got = search_range.unpack_keys_cuda(packed, alive)
+    want_d, want_i = search_range.unpack_keys(packed)
+    if alive is not None:
+        want_d = torch.where(alive, want_d, MISS_DST)
+        want_i = torch.where(alive, want_i, -1)
+    for want in ((want_d, want_i), plain):
+        if not (torch.equal(got[1], want[1]) and torch.equal(
+                got[0].view(torch.int32), want[0].view(torch.int32))):
             raise AssertionError(f"{where}: the CUDA unpack differs from "
                                  f"unpack_keys or from the plain result")
-    return int(items.sum())
 
 
 def n_bytes(*tensors) -> int:
@@ -646,17 +656,60 @@ def contract_note(c: dict) -> str:
             f"admitted by the kappa term alone")
 
 
+def check_mxu_items(words, flags, coeffs, alive, plain, n_blocks, where) -> int:
+    """K8's count kernel on these inputs, from junk-filled buffers: its scan
+    of the item counts equals that of mxu_items at the source's slice and
+    split, its keys the packed miss MISS_KEY and its claim counter 0; and
+    the CUDA unpack with ``alive`` equals unpack_keys with the dead-lane
+    rule, and the plain result, on that result's keys. Returns the item
+    count; raises on any difference."""
+    import ctypes
+
+    import torch
+
+    from raytracingc_tpu_torch.ops import _build, search_range
+    from raytracingc_tpu_torch.ops.intersect_mxu import mxu_items
+
+    lib = _build.load_library()
+    r = alive.shape[0]
+    dev = alive.device
+    ends = torch.full((words.shape[0],), -5, dtype=torch.int64, device=dev)
+    counter = torch.full((1,), 12345, dtype=torch.int64, device=dev)
+    keys = torch.full((r,), -7, dtype=torch.int64, device=dev)
+    _build.check(lib.rtc_mxu_items(
+        words.data_ptr(), flags.data_ptr(), *(ctypes.c_int(x) for x in (
+            r, words.shape[1], n_blocks)), ends.data_ptr(), counter.data_ptr(),
+        keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "mxu items launch")
+    want = torch.cumsum(mxu_items(words, flags, r, n_blocks), 0)
+    torch.cuda.synchronize()
+    if not torch.equal(ends, want):
+        raise AssertionError(f"{where}: the mxu count kernel's scan differs "
+                             f"from mxu_items' on {int((ends != want).sum())} programs")
+    if not ((keys == search_range.MISS_KEY).all() and int(counter) == 0):
+        raise AssertionError(f"{where}: the mxu count kernel left keys other "
+                             f"than MISS_KEY or a counter other than 0")
+    check_unpack(plain, alive, where)
+    return int(ends[-1])
+
+
 def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
     """Phase 3c. Returns ``({label: {precision: (kernel ms, plain ms)}},
     max |dst - plain dst| over agreeing live hits, {label: (tested
-    (program, block) pairs, bytes)})``, at R = TIMED_RAYS; raises on a
-    broken contract or on a control that passes."""
+    (program, block) pairs, bytes)})``, at R = TIMED_RAYS (labels with
+    SECONDARY: the secondary-like rays); raises on a broken contract, on a
+    control that passes, on a pack kernel that differs from mxu_fragments,
+    on a count kernel that differs from mxu_items, on an unpack that
+    differs from unpack_keys, or on two runs that differ."""
+    import numpy as np
     import torch
 
     from raytracingc_tpu_torch.ops import culling, search
     from raytracingc_tpu_torch.ops.accel import build_accel
     from raytracingc_tpu_torch.ops.intersect_mxu import (
         PRECISIONS,
+        mxu_fragments,
+        mxu_pack_cuda,
         search_mxu,
         search_mxu_reference,
     )
@@ -667,10 +720,10 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
     )
     from raytracingc_tpu_torch.scene.types import MISS_DST
     from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
-    from raytracingc_tpu_torch.tools.packets import packet_rays
+    from raytracingc_tpu_torch.tools.packets import packet_rays, secondary_rays
 
     timings, work, max_err, control = {}, {}, 0.0, None
-    for label, kind, n_live in cases:
+    for case, (label, kind, n_live) in enumerate(cases):
         t = time.time()
         tris, n, (lo, hi) = packet_scene(rng, kind, n_live)
         tris = tris.to(dev)
@@ -680,11 +733,23 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
         if way.kernel != "mxu" or accel.mxu_coeffs is None:
             raise AssertionError(f"{label}: routed to {way}, expected mxu")
         coeffs, oi = accel.mxu_coeffs, accel.orig_idx
+        for prec in PRECISIONS:
+            got = mxu_pack_cuda(coeffs, prec)
+            want = mxu_fragments(coeffs, PRECISIONS.index(prec) + 2)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label} {prec}: the pack kernel differs "
+                                     f"from mxu_fragments in "
+                                     f"{int((got != want).sum())} halves")
         brute_tri = pack_triangles(tris, n)
-        notes = []
-        for n_rays in rays:
-            o, d, alive = (torch.from_numpy(x).to(dev)
-                           for x in packet_rays(rng, n_rays, lo, hi))
+        sec_rng = np.random.default_rng([SECONDARY_SEED, 100 + case])
+        ray_sets = [(n_rays, "", lambda r: packet_rays(rng, r, lo, hi))
+                    for n_rays in rays]
+        ray_sets.append((TIMED_RAYS, SECONDARY, lambda r: secondary_rays(
+            sec_rng, r, lo, hi)))
+        notes = [f"pack kernel == mxu_fragments bitwise in both precisions"]
+        for n_rays, suffix, make in ray_sets:
+            o, d, alive = (torch.from_numpy(x).to(dev) for x in make(n_rays))
             o_p, d_p, a_p = culling.packets(o, d, alive)
             words, flags = culling.program_union_words(o_p, d_p, a_p, accel)
             blocks = int(bitmask_table(words, accel.n_blocks).sum())
@@ -693,13 +758,17 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
                 accel.n_blocks).sum())
             db, ib = search_brute_reference(o, d, brute_tri, n, alive)
             live = int(alive.sum())
-            where = f"{label} R={n_rays}"
+            where = f"{label}{suffix} R={n_rays}"
             outs = {}
             for prec in PRECISIONS:
                 args = (o, d, words, flags, coeffs, oi, prec, alive)
                 dk, ik = search_mxu(*args)
+                dk2, ik2 = search_mxu(*args)
                 dr, ir = search_mxu_reference(*args, chunk=MXU_PLAIN_CHUNK)
                 torch.cuda.synchronize()
+                if not (torch.equal(ik, ik2)
+                        and torch.equal(dk.view(torch.int32), dk2.view(torch.int32))):
+                    raise AssertionError(f"{where} {prec}: two runs differ")
                 for who, (dx, ix) in (("kernel", (dk, ik)), ("plain", (dr, ir))):
                     if not ((ix[~alive] == -1).all()
                             and (dx[~alive] == MISS_DST).all()):
@@ -732,17 +801,19 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
                             torch.int32), dk.view(torch.int32))):
                     raise AssertionError(f"{where} {prec}: two halves differ from "
                                          f"one call")
-                notes.append(f"R={n_rays} {prec}: {hits} live hits; vs plain: "
-                             f"{contract_note(c)}; vs brute: {b_flips} flips "
+                notes.append(f"R={n_rays}{suffix} {prec}: {hits} live hits; vs "
+                             f"plain: {contract_note(c)}; vs brute: {b_flips} flips "
                              f"({b_bad} off a boundary)")
                 if n_rays == TIMED_RAYS and (prec == "split3" or label == MXU_TIMED):
-                    timings.setdefault(label, {})[prec] = (
+                    timings.setdefault(label + suffix, {})[prec] = (
                         cuda_ms(lambda: search_mxu(*args), 20),
                         cuda_ms(lambda: search_mxu_reference(
                             *args, chunk=MXU_PLAIN_CHUNK), 2))
-                    work[label] = (blocks, n_bytes(o, d, alive, words, flags,
-                                                   coeffs, oi, dk, ik))
-            if n_rays == TIMED_RAYS and label == MXU_CONTROL:
+                    work[label + suffix] = (blocks, n_bytes(o, d, alive, words, flags,
+                                                            coeffs, oi, dk, ik))
+            n_items = check_mxu_items(words, flags, coeffs, alive, outs["split3"][1],
+                                      accel.n_blocks, where)
+            if n_rays == TIMED_RAYS and label == MXU_CONTROL and not suffix:
                 control = mxu_contract(tris, o, d, alive, outs["split3"][0],
                                        outs["highest"][1])
                 if control["ok"] or not control["graze_over"]:
@@ -753,12 +824,15 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
                 notes.append(f"R={n_rays} control, split3 kernel held to "
                              f"highest's plain version: out of contract as it "
                              f"must be: {contract_note(control)}")
-            notes.append(f"R={n_rays}: {blocks} (program, block) pairs, "
+            notes.append(f"R={n_rays}{suffix}: {blocks} (program, block) pairs, "
                          f"{blocks * 1024 * 128} ray-triangle pairs against "
                          f"{pk_blocks * 8 * 128} per packet "
-                         f"({blocks * 128 / max(pk_blocks, 1):.3f}x)")
+                         f"({blocks * 128 / max(pk_blocks, 1):.3f}x), {n_items} "
+                         f"work items (count kernel == mxu_items, unpack == "
+                         f"unpack_keys with the dead-lane rule)")
         phase("kernel", t, f"{label}: search_mxu vs plain and brute inside the "
-              f"contract, halves == one call; " + "; ".join(notes))
+              f"contract, halves == one call, two runs bitwise equal; "
+              + "; ".join(notes))
     if control is None:
         raise AssertionError(f"phase 3c ran no control ({MXU_CONTROL!r})")
     return timings, max_err, work
@@ -766,57 +840,68 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
 
 def check_union_kernel(dev, rng, cases=UNION_CASES, rays=PHASE3_RAYS):
     """Phase 3d. Returns ``({label: {kernel: ms}}, max |dst - plain dst|,
-    {label: (tested (program, block) pairs, bytes)})``, at R = TIMED_RAYS;
-    raises on any disagreement."""
+    {label: (tested (program, block) pairs, bytes)})``, at R = TIMED_RAYS
+    (labels with SECONDARY: the secondary-like rays); raises on any
+    disagreement."""
+    import numpy as np
     import torch
 
-    from raytracingc_tpu_torch.ops import culling, search
+    from raytracingc_tpu_torch.ops import culling
     from raytracingc_tpu_torch.ops.accel import build_accel
     from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu
     from raytracingc_tpu_torch.ops.search_bitmask import bitmask_table, search_bitmask
+    from raytracingc_tpu_torch.ops.search_brute import (
+        pack_triangles,
+        search_brute_reference,
+    )
     from raytracingc_tpu_torch.ops.search_union import (
         search_union,
         search_union_reference,
     )
     from raytracingc_tpu_torch.tools import cuda_ms
-    from raytracingc_tpu_torch.tools.packets import packet_rays
+    from raytracingc_tpu_torch.tools.packets import packet_rays, secondary_rays
 
     timings, work, max_err = {}, {}, 0.0
-    for label, kind, n_live in cases:
+    for case, (label, kind, n_live) in enumerate(cases):
         t = time.time()
         tris, n, (lo, hi) = packet_scene(rng, kind, n_live)
         tris = tris.to(dev)
         accel = build_accel(tris, n)
         plane, oi = accel.packed_plane, accel.orig_idx
+        brute_tri = pack_triangles(tris, n)
+        sec_rng = np.random.default_rng([SECONDARY_SEED, 200 + case])
+        ray_sets = [(n_rays, "", lambda r: packet_rays(rng, r, lo, hi))
+                    for n_rays in rays]
+        ray_sets.append((TIMED_RAYS, SECONDARY, lambda r: secondary_rays(
+            sec_rng, r, lo, hi)))
         notes = []
-        for n_rays in rays:
-            o, d, alive = (torch.from_numpy(x).to(dev)
-                           for x in packet_rays(rng, n_rays, lo, hi))
+        for n_rays, suffix, make in ray_sets:
+            o, d, alive = (torch.from_numpy(x).to(dev) for x in make(n_rays))
             o_p, d_p, a_p = culling.packets(o, d, alive)
             words, flags = culling.program_union_words(o_p, d_p, a_p, accel)
             pk_words = culling.packet_block_masks(o_p, d_p, a_p, accel)
             args = (o, d, words, flags, plane, oi)
             dk, ik = search_union(*args)
             dr, ir = search_union_reference(*args)
-            dp, ip_ = search.search_triangles(o, d, tris, n, alive=alive,
-                                              accel=accel)
+            db, ib = search_brute_reference(o, d, brute_tri, n, alive)
             torch.cuda.synchronize()
-            where = f"{label} R={n_rays}"
+            where = f"{label}{suffix} R={n_rays}"
             if not (torch.equal(ik, ir)
                     and torch.equal(dk.view(torch.int32), dr.view(torch.int32))):
                 raise AssertionError(f"{where}: search_union differs from its "
                                      f"plain version on {int((ik != ir).sum())} rays")
-            if not (torch.equal(ik[alive], ip_[alive]) and torch.equal(
-                    dk[alive].view(torch.int32), dp[alive].view(torch.int32))):
-                raise AssertionError(f"{where}: live lanes differ from the default "
-                                     f"route on {int((ik != ip_)[alive].sum())} rays")
+            if not (torch.equal(ik[alive], ib[alive]) and torch.equal(
+                    dk[alive].view(torch.int32), db[alive].view(torch.int32))):
+                raise AssertionError(f"{where}: live lanes differ from the brute "
+                                     f"scan on {int((ik != ib)[alive].sum())} rays")
             max_err = max(max_err, float((dk - dr).abs().max()))
             blocks = int(bitmask_table(words, accel.n_blocks).sum())
             pk_blocks = int(bitmask_table(pk_words, accel.n_blocks).sum())
-            notes.append(f"R={n_rays}: {int((ik[alive] >= 0).sum())} live hits, "
-                         f"{blocks} (program, block) pairs = {blocks * 1024 * 128} "
-                         f"ray-triangle pairs against {pk_blocks * 8 * 128} per "
-                         f"packet ({blocks * 128 / max(pk_blocks, 1):.3f}x)")
+            notes.append(f"R={n_rays}{suffix}: {int((ik[alive] >= 0).sum())} live "
+                         f"hits, {blocks} (program, block) pairs = "
+                         f"{blocks * 1024 * 128} ray-triangle pairs against "
+                         f"{pk_blocks * 8 * 128} per packet "
+                         f"({blocks * 128 / max(pk_blocks, 1):.3f}x)")
             if n_rays == TIMED_RAYS:
                 ms = {"search_union": cuda_ms(lambda: search_union(*args), 20),
                       "search_union plain": cuda_ms(
@@ -828,16 +913,16 @@ def check_union_kernel(dev, rng, cases=UNION_CASES, rays=PHASE3_RAYS):
                         ms[f"search_mxu {prec}"] = cuda_ms(lambda: search_mxu(
                             o, d, words, flags, accel.mxu_coeffs, oi, prec,
                             alive), 20)
-                timings[label] = ms
-                work[label] = (blocks, n_bytes(o, d, words, flags, plane, oi, dk, ik))
+                timings[label + suffix] = ms
+                work[label + suffix] = (blocks, n_bytes(o, d, words, flags, plane,
+                                                        oi, dk, ik))
                 pairs = lambda k: (pk_blocks * 8 if k == "search_bitmask"
                                    else blocks * 1024) * 128
-                notes.append(f"at R={n_rays}: " + ", ".join(
+                notes.append(f"at R={n_rays}{suffix}: " + ", ".join(
                     f"{k} {v:.4f} ms ({v * 1e6 / pairs(k):.4f} ns per tested pair)"
                     for k, v in ms.items()))
         phase("kernel", t, f"{label}: search_union == plain bitwise, live lanes == "
-              f"default route ({search.route(n, accel.n_blocks, search.Knobs.read()).kernel}); "
-              + "; ".join(notes))
+              f"brute scan, coherent and secondary-like; " + "; ".join(notes))
     return timings, max_err, work
 
 
@@ -891,7 +976,7 @@ def main() -> int:
     from raytracingc_tpu_torch import tools
     from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
     from raytracingc_tpu_torch.ops import _build
-    from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu
+    from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu, search_mxu_grid
     from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
     from raytracingc_tpu_torch.ops.search_brute import (
         search_brute,
@@ -930,18 +1015,22 @@ def main() -> int:
         ln.split(":", 1)[1].strip() for ln in _build.build_log.splitlines()
         if "Used" in ln
     )
-    packet_ptxas = "; ".join(
-        f"{k}: {_build.ptxas_report(k) or 'not reported'}"
-        for k in ("search_bitmask_kernel", "search_packed_kernel",
-                  "search_range_kernel", "search_words_kernel",
-                  "range_items_kernel", "words_items_kernel",
-                  "unpack_keys_kernel"))
-    grids = {k: item_grid(dev, k) for k in ("range", "words")}
+    reports = {k: _build.ptxas_report(k) for k in (
+        "search_bitmask_kernel", "search_packed_kernel", "search_range_kernel",
+        "search_words_kernel", "range_items_kernel", "words_items_kernel",
+        "unpack_keys_kernel", "search_mxu_kernel", "mxu_pack_kernel",
+        "mxu_items_kernel")}
+    spilled = [k for k in NO_SPILLS if re.search(r"[1-9]\d* bytes spill", reports[k])]
+    if spilled:
+        raise AssertionError(f"ptxas spills in {spilled}: {reports}")
+    packet_ptxas = "; ".join(f"{k}: {v or 'not reported'}" for k, v in reports.items())
+    grids = {f"search_{k}_kernel": item_grid(dev, k) for k in ("range", "words")}
+    grids.update({f"search_mxu_kernel {prec}": search_mxu_grid(dev, prec)
+                  for prec in ("split3", "highest")})
     phase("build", t, f"{_build.library_path().name} built in "
           f"{time.time() - t:.2f}s (ptxas: {ptxas or 'cached library'}; "
           f"{packet_ptxas}); persistent grids: " + ", ".join(
-              f"search_{k}_kernel {c} CTAs per SM x {n} SMs"
-              for k, (c, n) in grids.items()))
+              f"{k} {c} CTAs per SM x {n} SMs" for k, (c, n) in grids.items()))
 
     # 3. Kernel vs plain, on the card: bitwise.
     t = time.time()
@@ -1003,11 +1092,12 @@ def main() -> int:
     phase("kernel", t, "search_mxu at R=" + str(TIMED_RAYS) + ": " + ", ".join(
         f"{label} {prec}: kernel {k:.4f} ms, plain {p:.4f} ms, "
         f"{mxu_work[label][0] * RPP} tested pairs, bound "
-        f"{mxu_bound(label, prec)[0]:.5f} ms ({mxu_bound(label, prec)[1]})"
+        f"{mxu_bound(label, prec)[0]:.5f} ms ({mxu_bound(label, prec)[1]}), "
+        f"{mxu_bound(label, prec)[0] / k:.1%} of bound"
         for label, by_prec in mxu_times.items()
         for prec, (k, p) in by_prec.items()))
 
-    # 3d. The union-walk kernel vs plain and the default route.
+    # 3d. The union-walk kernel vs plain and the brute scan.
     t = time.time()
     union_times, union_err, union_work = check_union_kernel(dev, rng)
     union_bound = {label: bound(blocks * RPP * MT_OPS, 0, nbytes)
@@ -1015,7 +1105,8 @@ def main() -> int:
     phase("kernel", t, "search_union at R=" + str(TIMED_RAYS) + ": " + "; ".join(
         f"{label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
         + f", search_union bound {union_bound[label][0]:.5f} ms "
-        f"({union_bound[label][1]})"
+        f"({union_bound[label][1]}), "
+        f"{union_bound[label][0] / ms['search_union']:.1%} of bound"
         for label, ms in union_times.items()))
 
     # 3e. The shared-memory probe's ladder.
@@ -1155,6 +1246,7 @@ def main() -> int:
     # these inputs need: every (ray, triangle) pair the kernel's culling
     # table makes it test (R x n_live for brute).
     src = "raytracingc_tpu_torch/csrc/{}.cu"
+    sources = {"search_union": src.format("search_words")}
     tpu = "raytracingc_tpu/ops/intersect_pallas.py:{}"
     packet_row = lambda label: (packet_times[label], packet_bound[label])
     brute_pairs, brute_bytes = brute_work[max(TIMED_N_LIVE)]
@@ -1184,7 +1276,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": src.format(name),
+        "source": sources.get(name, src.format(name)),
         "replaces": replaces,
         "launches": total_launches[name],
         "max_abs_err": err,

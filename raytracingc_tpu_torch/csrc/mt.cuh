@@ -5,8 +5,9 @@
 // test per (ray, triangle) pair with the backface cull on the stored normal,
 // the EPSILON guards, IEEE division and, with the library built with
 // --fmad=false, every multiply and add rounded on its own. Every kernel of
-// the library runs this one function, so the kernels agree with each other
-// and with the plain PyTorch versions (ops/search_brute.py::mt_distance) bit
+// the library but the MXU search (search_mxu.cu, bilinear forms on the
+// tensor cores) runs this one function, so they agree with each other and
+// with the plain PyTorch versions (ops/search_brute.py::mt_distance) bit
 // for bit.
 
 #pragma once
@@ -65,33 +66,6 @@ __device__ __forceinline__ float mt_distance(
                      (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
                      (dst >= kEpsilon);
   return valid ? dst : kMissDst;
-}
-
-// Tests the 128 triangles of block `blk` of the (12, t_stride) plane of A,
-// AB, AC, N rows (ops/accel.py packed_plane) and keeps the running best
-// lexicographically on (dst, orig_idx): among equal distances the lowest
-// ORIGINAL index wins, whatever order the Morton permutation put them in.
-__device__ __forceinline__ void mt_block(const Ray& r,
-                                         const float* __restrict__ plane,
-                                         const int32_t* __restrict__ orig_idx,
-                                         int64_t t_stride, int64_t blk,
-                                         float& best_d, int32_t& best_i) {
-  const int64_t base = blk * kBlock;
-  for (int k = 0; k < kBlock; ++k) {
-    const float* p = plane + base + k;
-    const float dst = mt_distance(
-        r, __ldg(p), __ldg(p + t_stride), __ldg(p + 2 * t_stride),
-        __ldg(p + 3 * t_stride), __ldg(p + 4 * t_stride),
-        __ldg(p + 5 * t_stride), __ldg(p + 6 * t_stride),
-        __ldg(p + 7 * t_stride), __ldg(p + 8 * t_stride),
-        __ldg(p + 9 * t_stride), __ldg(p + 10 * t_stride),
-        __ldg(p + 11 * t_stride));
-    const int32_t oi = __ldg(orig_idx + base + k);
-    if (dst < best_d || (dst == best_d && oi < best_i)) {
-      best_d = dst;
-      best_i = oi;
-    }
-  }
 }
 
 }  // namespace rtc

@@ -15,7 +15,7 @@
 // and l + 96: it loads each one's 12 plane words and original index once
 // (the warp reads 128 consecutive bytes of each row) and tests it against
 // all 8 rays with rtc::mt_distance, keeping 8 running (dst, orig_idx) bests
-// under the lexicographic rule of rtc::mt_block. At the end of the packet a
+// under the lexicographic rule of rtc::lex_min. At the end of the packet a
 // warp lex-min (5 __shfl_xor_sync rounds per ray) combines the lanes, and
 // lanes 0-7 write rays 8p .. 8p + 7.
 //
@@ -86,6 +86,9 @@ struct BlockCursor {
   }
 };
 
+// The running best, lexicographically on (dst, orig_idx): among equal
+// distances the lowest ORIGINAL index wins, whatever order the Morton
+// permutation put the triangles in.
 __device__ __forceinline__ void lex_min(float& best_d, int32_t& best_i,
                                         float d, int32_t i) {
   if (d < best_d || (d == best_d && i < best_i)) {
@@ -207,7 +210,9 @@ __device__ __forceinline__ void search_packet(
 }
 
 // ---------------------------------------------------------------------------
-// Work items (the range and words kernels). Each packet's block list is cut
+// Work items (the range and words kernels; the union walk K9 is the words
+// kernel with one word row per 1,024-ray program, and the MXU search K8
+// runs the same claim loop, keys and unpack). Each packet's block list is cut
 // into work items of at most kSplit blocks; a count kernel gives each packet
 // its item count, the wrapper scans the counts on the device (torch.cumsum,
 // no host sync) into `ends`, and a persistent grid (about SMs x resident
@@ -243,11 +248,44 @@ __device__ __forceinline__ void reset_item_state(
   }
 }
 
-// The persistent loop: each warp claims item after item until the counter
-// passes ends[n_packets - 1], the total. Item j belongs to the least p with
-// ends[p] > j, as its k-th item, k = j - ends[p - 1]. `items.begin(p, k)`
-// gives a cursor over that item's blocks (global block ids of the (12,
-// t_stride) plane): next() returns the next one, or -1 after the last.
+// A hit's key, bits(dst) << 32 | orig_idx (dst >= kEpsilon, orig_idx <=
+// kBigIdx).
+__device__ __forceinline__ unsigned long long hit_key(float dst, int32_t i) {
+  return (static_cast<unsigned long long>(__float_as_uint(dst)) << 32) |
+         static_cast<uint32_t>(i);
+}
+
+// The persistent claim loop of every item search (the packet walks below;
+// the MXU search, search_mxu.cu): each warp claims item after item until
+// the counter passes ends[n_units - 1], the total. Item j belongs to the
+// least unit u with ends[u] > j, as its k-th item, k = j - ends[u - 1]; the
+// warp runs body(u, k) for it.
+template <typename Body>
+__device__ __forceinline__ void claim_items(
+    const int64_t* __restrict__ ends, int n_units,
+    unsigned long long* __restrict__ counter, Body&& body) {
+  const int lane = threadIdx.x & 31;
+  const int64_t total = __ldg(ends + n_units - 1);
+  for (;;) {
+    unsigned long long claim = 0;
+    if (lane == 0) claim = atomicAdd(counter, 1ull);
+    const int64_t item =
+        static_cast<int64_t>(__shfl_sync(0xffffffffu, claim, 0));
+    if (item >= total) return;  // the whole warp
+
+    int a = 0, b = n_units - 1;  // the least u with ends[u] > item
+    while (a < b) {
+      const int m = (a + b) >> 1;
+      if (__ldg(ends + m) > item) b = m; else a = m + 1;
+    }
+    body(a, static_cast<int>(item - (a > 0 ? __ldg(ends + a - 1) : 0)));
+  }
+}
+
+// The packet walks' persistent loop: the units are the packets, and
+// `items.begin(p, k)` gives a cursor over item k's blocks of packet p
+// (global block ids of the (12, t_stride) plane): next() returns the next
+// one, or -1 after the last.
 template <typename Items>
 __device__ __forceinline__ void search_items(
     const float* __restrict__ o, const float* __restrict__ d,
@@ -257,23 +295,8 @@ __device__ __forceinline__ void search_items(
     unsigned long long* __restrict__ counter,
     unsigned long long* __restrict__ keys) {
   const int lane = threadIdx.x & 31;
-  const int64_t total = __ldg(ends + n_packets - 1);
-  for (;;) {
-    unsigned long long claim = 0;
-    if (lane == 0) claim = atomicAdd(counter, 1ull);
-    const int64_t item =
-        static_cast<int64_t>(__shfl_sync(0xffffffffu, claim, 0));
-    if (item >= total) return;  // the whole warp
-
-    int a = 0, b = n_packets - 1;  // the least p with ends[p] > item
-    while (a < b) {
-      const int m = (a + b) >> 1;
-      if (__ldg(ends + m) > item) b = m; else a = m + 1;
-    }
-    const int p = a;
-    const int k = static_cast<int>(item - (p > 0 ? __ldg(ends + p - 1) : 0));
+  claim_items(ends, n_packets, counter, [&](int p, int k) {
     auto cur = items.begin(p, k);
-
     const int r0 = p * kPacket;
     Ray ray[kPacket];
     float best_d[kPacket];
@@ -287,12 +310,9 @@ __device__ __forceinline__ void search_items(
     warp_lex_min(best_d, best_i, lane, out_d, out_i);
     const int r = r0 + lane;
     if (lane < kPacket && r < n_rays && out_d < kMissDst) {
-      const unsigned long long key =
-          (static_cast<unsigned long long>(__float_as_uint(out_d)) << 32) |
-          static_cast<uint32_t>(out_i);
-      atomicMin(keys + r, key);
+      atomicMin(keys + r, hit_key(out_d, out_i));
     }
-  }
+  });
 }
 
 // The persistent grid of an item search kernel: resident CTAs of

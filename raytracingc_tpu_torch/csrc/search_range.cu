@@ -46,8 +46,8 @@
 // zeroes the claim counter), the wrapper scans the counts (torch.cumsum, on
 // the device), the search merges each item's results into the rays' 64-bit
 // keys with atomicMin, and unpack_keys_kernel turns the keys into (dst, idx)
-// (ops/search_range.py::unpack_keys is its plain version). The words
-// wrapper runs the same unpack. Left out as TPU aids that change no result:
+// (ops/search_range.py::unpack_keys is its plain version). The words and
+// MXU wrappers run the same unpack, the MXU one with its dead lanes. Left out as TPU aids that change no result:
 // the per-program dead flags and the SMEM ray slicing.
 
 #include <cuda_runtime.h>
@@ -114,15 +114,19 @@ search_range_kernel(const float* __restrict__ o,              // [R, 3]
                     keys);
 }
 
-// (dst, idx) of each ray's key; idx -1 where dst is the miss.
+// (dst, idx) of each ray's key; idx -1 where dst is the miss. A dead lane
+// (alive[r] == 0, alive non-null) reports (kMissDst, -1).
 __global__ void __launch_bounds__(rtc::kCountThreads)
 unpack_keys_kernel(const unsigned long long* __restrict__ keys,  // [R]
+                   const uint8_t* __restrict__ alive,            // [R] or null
                    int n, float* __restrict__ dst,               // [R]
                    int32_t* __restrict__ idx) {                  // [R]
   const int r = blockIdx.x * rtc::kCountThreads + threadIdx.x;
   if (r >= n) return;
   const unsigned long long key = keys[r];
-  const float dr = __uint_as_float(static_cast<uint32_t>(key >> 32));
+  const bool dead = alive != nullptr && alive[r] == 0;
+  const float dr =
+      dead ? rtc::kMissDst : __uint_as_float(static_cast<uint32_t>(key >> 32));
   dst[r] = dr;
   idx[r] = dr < rtc::kMissDst ? static_cast<int32_t>(static_cast<uint32_t>(key))
                               : -1;
@@ -186,16 +190,18 @@ int rtc_search_range_grid(int* ctas_per_sm, int* sms) {
       rtc::item_grid(search_range_kernel, ctas_per_sm, sms));
 }
 
-// Unpacks keys [n] (int64) of the range and words searches into dst [n]
-// (float32) and idx [n] (int32, -1 on a miss) on `stream`; returns
+// Unpacks keys [n] (int64) of the item searches (range, words, MXU) into
+// dst [n] (float32) and idx [n] (int32, -1 on a miss or a dead lane) on
+// `stream`; alive [n] (bool) may be null (no lane dead). Returns
 // cudaGetLastError() as an int (0 = launched).
-int rtc_unpack_keys(const void* keys, int n, void* dst, void* idx,
-                    void* stream) {
+int rtc_unpack_keys(const void* keys, const void* alive, int n, void* dst,
+                    void* idx, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   unpack_keys_kernel<<<count_blocks(n), rtc::kCountThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned long long*>(keys), n,
-      static_cast<float*>(dst), static_cast<int32_t*>(idx));
+      static_cast<const unsigned long long*>(keys),
+      static_cast<const uint8_t*>(alive), n, static_cast<float*>(dst),
+      static_cast<int32_t*>(idx));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,6 +51,19 @@
 // the item's by division, so no block is walked twice and none is skipped
 // (tests/test_torch_search_words.py holds this skip, on its plain model in
 // ops/search_words.py, to the packet's block list).
+//
+// The union walk (K9, tools/union_walk_ab.py::_union_kernel; wrapper
+// ops/search_union.py) is this kernel with one word row per 1,024-ray
+// program instead of one per packet: packet p reads row p / 128, the
+// program's union words (ops/culling.py::program_union_words), as n_words
+// tiles of 31 blocks at granule 1 (bit j of word w is block 31 w + j), over
+// the accel's unpadded plane (n_cols columns; the wrapper clears the bits
+// past its last block and the rows of programs whose flag is 0). The row
+// mapping is a template constant of the count kernel and of the walk
+// (kRowPackets: 1 for K6/K7, 128 for K9), so neither route pays for the
+// other. What bounds K9 is the same MT work, but over every block of the
+// program's union for all 1,024 rays, more pairs than each packet's own
+// bits (the pair inflation chip_smoke.py counts).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,9 +94,11 @@ __device__ __forceinline__ int tile_blocks(uint32_t word, int blocks_per_tile,
 }
 
 // items[p]: ceil(blocks / kSplit) of packet p's blocks over all tiles; also
-// resets the keys and the claim counter (rtc::reset_item_state).
+// resets the keys and the claim counter (rtc::reset_item_state). Packet p
+// reads word row p / kRowPackets.
+template <int kRowPackets>
 __global__ void __launch_bounds__(rtc::kCountThreads)
-words_items_kernel(const int32_t* __restrict__ words,  // [P, n_tiles]
+words_items_kernel(const int32_t* __restrict__ words,  // [rows, n_tiles]
                    int n_rays, int n_packets, int n_tiles,
                    int blocks_per_tile, int granule,
                    int32_t* __restrict__ items,                // [P]
@@ -92,7 +107,7 @@ words_items_kernel(const int32_t* __restrict__ words,  // [P, n_tiles]
   const int p = blockIdx.x * rtc::kCountThreads + threadIdx.x;
   if (p >= n_packets) return;
   rtc::reset_item_state(p, n_rays, counter, keys);
-  const int32_t* pw = words + static_cast<int64_t>(p) * n_tiles;
+  const int32_t* pw = words + static_cast<int64_t>(p / kRowPackets) * n_tiles;
   int blocks = 0;
   for (int t = 0; t < n_tiles; ++t) {
     blocks += tile_blocks(static_cast<uint32_t>(pw[t]), blocks_per_tile,
@@ -102,7 +117,8 @@ words_items_kernel(const int32_t* __restrict__ words,  // [P, n_tiles]
 }
 
 // Item k of packet p: blocks k * kSplit .. k * kSplit + kSplit - 1 of the
-// packet's block list (the last item may hold fewer).
+// block list of word row p / kRowPackets (the last item may hold fewer).
+template <int kRowPackets>
 struct WordItems {
   const int32_t* words;
   int n_tiles, blocks_per_tile, granule;
@@ -116,7 +132,7 @@ struct WordItems {
   };
 
   __device__ __forceinline__ Cursor begin(int p, int k) const {
-    const int32_t* pw = words + static_cast<int64_t>(p) * n_tiles;
+    const int32_t* pw = words + static_cast<int64_t>(p / kRowPackets) * n_tiles;
     rtc::BlockCursor cur{pw, n_tiles, 1, blocks_per_tile, granule};
     // The item's first block, s of the packet's list. The count kernel's
     // items end before the list does, so some tile holds it.
@@ -142,23 +158,27 @@ struct WordItems {
   }
 };
 
+template <int kRowPackets>
 __global__ void __launch_bounds__(rtc::kItemThreads, rtc::kItemMinCtas)
 search_words_kernel(const float* __restrict__ o,              // [R, 3]
                     const float* __restrict__ d,              // [R, 3]
-                    const int32_t* __restrict__ words,        // [P, n_tiles]
+                    const int32_t* __restrict__ words,        // [rows, n_tiles]
                     const int64_t* __restrict__ ends,         // [P] inclusive scan
-                    const float* __restrict__ plane,          // [12, n_tiles * tile]
-                    const int32_t* __restrict__ orig_idx,     // [n_tiles * tile]
-                    int n_rays, int n_packets, int n_tiles,
+                    const float* __restrict__ plane,          // [12, n_cols]
+                    const int32_t* __restrict__ orig_idx,     // [n_cols]
+                    int n_rays, int n_packets, int n_cols, int n_tiles,
                     int blocks_per_tile, int granule,
                     unsigned long long* __restrict__ counter, // [1], 0
                     unsigned long long* __restrict__ keys) {  // [R]
   rtc::search_items(
-      o, d, ends, plane, orig_idx,
-      static_cast<int64_t>(n_tiles) * blocks_per_tile * rtc::kBlock, n_rays,
-      n_packets, WordItems{words, n_tiles, blocks_per_tile, granule}, counter,
-      keys);
+      o, d, ends, plane, orig_idx, n_cols, n_rays, n_packets,
+      WordItems<kRowPackets>{words, n_tiles, blocks_per_tile, granule},
+      counter, keys);
 }
+
+// The row mappings the library carries: one word row per packet (K6, K7),
+// or per 1,024-ray program (K9, the union walk).
+constexpr int kProgramPackets = 128;
 
 }  // namespace
 
@@ -166,17 +186,21 @@ extern "C" {
 
 // Counts each packet's work items into items [ceil(n_rays / 8)] (int32),
 // fills keys [n_rays] (int64) with the packed miss and zeroes counter [1]
-// (int64), on `stream`; returns cudaGetLastError() as an int (0 =
+// (int64), on `stream`; packet p reads word row p / row_packets of words
+// (row_packets 1 or 128). Returns cudaGetLastError() as an int (0 =
 // launched).
 int rtc_words_items(const void* words, int n_rays, int n_tiles,
-                    int blocks_per_tile, int granule, void* items,
-                    void* counter, void* keys, void* stream) {
+                    int blocks_per_tile, int granule, int row_packets,
+                    void* items, void* counter, void* keys, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (row_packets != 1 && row_packets != kProgramPackets) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int n_packets = (n_rays + rtc::kPacket - 1) / rtc::kPacket;
-  words_items_kernel<<<(n_packets + rtc::kCountThreads - 1) /
-                           rtc::kCountThreads,
-                       rtc::kCountThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = row_packets == 1 ? words_items_kernel<1>
+                                 : words_items_kernel<kProgramPackets>;
+  kernel<<<(n_packets + rtc::kCountThreads - 1) / rtc::kCountThreads,
+           rtc::kCountThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(words), n_rays, n_packets, n_tiles,
       blocks_per_tile, granule, static_cast<int32_t*>(items),
       static_cast<unsigned long long*>(counter),
@@ -186,26 +210,32 @@ int rtc_words_items(const void* words, int n_rays, int n_tiles,
 
 // Launches the search on `stream`: ends [ceil(n_rays / 8)] int64 is the
 // inclusive scan of rtc_words_items' counts, and counter and keys are as
-// rtc_words_items left them; keys receive each ray's packed lex-min.
-// Returns cudaGetLastError() as an int (0 = launched).
+// rtc_words_items left them (same row_packets); the plane has n_cols
+// columns; keys receive each ray's packed lex-min. Returns
+// cudaGetLastError() as an int (0 = launched).
 int rtc_search_words(const void* o, const void* d, const void* words,
                      const void* ends, const void* plane,
-                     const void* orig_idx, int n_rays, int n_tiles,
-                     int blocks_per_tile, int granule, void* counter,
-                     void* keys, void* stream) {
+                     const void* orig_idx, int n_rays, int n_cols,
+                     int n_tiles, int blocks_per_tile, int granule,
+                     int row_packets, void* counter, void* keys,
+                     void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (row_packets != 1 && row_packets != kProgramPackets) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = row_packets == 1 ? search_words_kernel<1>
+                                 : search_words_kernel<kProgramPackets>;
   int ctas_per_sm = 0, sms = 0;
-  const cudaError_t err =
-      rtc::item_grid(search_words_kernel, &ctas_per_sm, &sms);
+  const cudaError_t err = rtc::item_grid(kernel, &ctas_per_sm, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  search_words_kernel<<<ctas_per_sm * sms, rtc::kItemThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<ctas_per_sm * sms, rtc::kItemThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const int32_t*>(words), static_cast<const int64_t*>(ends),
       static_cast<const float*>(plane),
       static_cast<const int32_t*>(orig_idx), n_rays,
-      (n_rays + rtc::kPacket - 1) / rtc::kPacket, n_tiles, blocks_per_tile,
-      granule, static_cast<unsigned long long*>(counter),
+      (n_rays + rtc::kPacket - 1) / rtc::kPacket, n_cols, n_tiles,
+      blocks_per_tile, granule, static_cast<unsigned long long*>(counter),
       static_cast<unsigned long long*>(keys));
   return static_cast<int>(cudaGetLastError());
 }
@@ -214,7 +244,7 @@ int rtc_search_words(const void* o, const void* d, const void* words,
 // (of rtc::kItemThreads threads) and SMs. Returns a cudaError_t as an int.
 int rtc_search_words_grid(int* ctas_per_sm, int* sms) {
   return static_cast<int>(
-      rtc::item_grid(search_words_kernel, ctas_per_sm, sms));
+      rtc::item_grid(search_words_kernel<1>, ctas_per_sm, sms));
 }
 
 }  // extern "C"

@@ -48,12 +48,14 @@ _SIGNATURES = {
     "rtc_range_items": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] * 4, _INT),
     "rtc_search_range": ([_VOID_P] * 7 + [_INT] * 2 + [_VOID_P] * 3, _INT),
     "rtc_search_range_grid": ([_VOID_P] * 2, _INT),
-    "rtc_unpack_keys": ([_VOID_P, _INT] + [_VOID_P] * 3, _INT),
-    "rtc_words_items": ([_VOID_P] + [_INT] * 4 + [_VOID_P] * 4, _INT),
-    "rtc_search_words": ([_VOID_P] * 6 + [_INT] * 4 + [_VOID_P] * 3, _INT),
+    "rtc_unpack_keys": ([_VOID_P] * 2 + [_INT] + [_VOID_P] * 3, _INT),
+    "rtc_words_items": ([_VOID_P] + [_INT] * 5 + [_VOID_P] * 4, _INT),
+    "rtc_search_words": ([_VOID_P] * 6 + [_INT] * 6 + [_VOID_P] * 3, _INT),
     "rtc_search_words_grid": ([_VOID_P] * 2, _INT),
-    "rtc_search_mxu": ([_VOID_P] * 7 + [_INT] * 4 + [_VOID_P] * 3, _INT),
-    "rtc_search_union": ([_VOID_P] * 6 + [_INT] * 3 + [_VOID_P] * 3, _INT),
+    "rtc_mxu_pack": ([_VOID_P, _INT, _INT, _VOID_P, _VOID_P], _INT),
+    "rtc_mxu_items": ([_VOID_P] * 2 + [_INT] * 3 + [_VOID_P] * 4, _INT),
+    "rtc_search_mxu": ([_VOID_P] * 7 + [_INT] * 4 + [_VOID_P] * 4, _INT),
+    "rtc_search_mxu_grid": ([_INT] + [_VOID_P] * 2, _INT),
     "rtc_smem_probe": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] * 2, _INT),
     "rtc_smem_optin": ([_INT, _VOID_P], _INT),
     "rtc_error_string": ([_INT], ctypes.c_char_p),

@@ -151,44 +151,52 @@ search_range.launches = 0
 
 
 def item_search(o, what: str, count, search):
-    """The CUDA launch sequence of the work-item searches (range, words) on
-    ``o``'s card: ``count(lib, items, counter, keys, stream)`` launches the
-    count kernel, which writes each packet's item count into ``items`` and
-    fills ``keys`` with :data:`MISS_KEY` and ``counter`` with 0; ``ends``,
-    the counts' ``torch.cumsum`` (on the device: no host sync);
-    ``search(lib, ends, counter, keys, stream)`` launches the search; the
-    keys go through :func:`unpack_keys_cuda`. Returns ``(dst, idx)``."""
+    """The CUDA launch sequence of the range and words searches on ``o``'s
+    card: ``count(lib, items, counter, keys, stream)`` launches the count
+    kernel, which writes each packet's item count into ``items`` and fills
+    ``keys`` with :data:`MISS_KEY` and ``counter`` with 0; ``ends``, the
+    counts' ``torch.cumsum`` (on the device: no host sync); ``search(lib,
+    ends, counter, keys, stream)`` launches the search; the keys go through
+    the CUDA unpack of :func:`unpack_keys_cuda`. Returns ``(dst, idx)``."""
     from raytracingc_tpu_torch.ops import _build
 
     lib = _build.load_library()
     r = o.shape[0]
     items = torch.empty((n_packets(r),), dtype=torch.int32, device=o.device)
-    counter = torch.empty((1,), dtype=torch.int64, device=o.device)
-    keys = torch.empty((r,), dtype=torch.int64, device=o.device)
+    state = torch.empty((r + 1,), dtype=torch.int64, device=o.device)
+    counter, keys = state[:1], state[1:]
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream
         _build.check(count(lib, items, counter, keys, stream), f"{what} items launch")
         ends = torch.cumsum(items, 0, dtype=torch.int64)
         _build.check(search(lib, ends, counter, keys, stream), f"{what} launch")
-    return unpack_keys_cuda(keys)
+        return _unpack(lib, keys, None, stream)
 
 
-def unpack_keys_cuda(keys):
-    """:func:`unpack_keys` of int64 CUDA ``keys`` by ``csrc/search_range.cu``'s
-    unpack kernel (one launch): ``(dst, idx)``, the same bits."""
+def _unpack(lib, keys, alive, stream):
     import ctypes
 
     from raytracingc_tpu_torch.ops import _build
 
-    lib = _build.load_library()
     n = keys.shape[0]
     dst = torch.empty((n,), dtype=torch.float32, device=keys.device)
     idx = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    with torch.cuda.device(keys.device):
-        _build.check(lib.rtc_unpack_keys(
-            keys.data_ptr(), ctypes.c_int(n), dst.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(keys.device).cuda_stream), "unpack_keys launch")
+    _build.check(lib.rtc_unpack_keys(
+        keys.data_ptr(), None if alive is None else alive.data_ptr(),
+        ctypes.c_int(n), dst.data_ptr(), idx.data_ptr(), stream), "unpack_keys launch")
     return dst, idx
+
+
+def unpack_keys_cuda(keys, alive=None):
+    """:func:`unpack_keys` of int64 CUDA ``keys`` by ``csrc/search_range.cu``'s
+    unpack kernel (one launch): ``(dst, idx)``, the same bits; where
+    ``alive`` (bool, optional) is False, ``(MISS_DST, -1)``, as the MXU
+    search's unpack gives its dead lanes."""
+    from raytracingc_tpu_torch.ops import _build
+
+    with torch.cuda.device(keys.device):
+        return _unpack(_build.load_library(), keys, alive,
+                       torch.cuda.current_stream(keys.device).cuda_stream)
 
 
 def search_grid(device, kernel: str) -> tuple[int, int]:

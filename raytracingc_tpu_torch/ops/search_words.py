@@ -162,21 +162,33 @@ def search_words(o, d, words, plane, orig_idx, tile: int, granule: int):
     if o.device.type != "cuda":
         raise RuntimeError(f"search_words: no kernel for device {o.device}")
 
+    out = words_search_cuda(o, d, words, plane, orig_idx, tile // BLOCK,
+                            granule, 1, "search_words")
+    search_words.launches += 1
+    return out
+
+
+def words_search_cuda(o, d, words, plane, orig_idx, blocks_per_tile: int,
+                      granule: int, row_packets: int, what: str):
+    """``csrc/search_words.cu`` on CUDA tensors through
+    ``search_range.item_search``: packet ``p`` walks word row ``p //
+    row_packets`` of ``words [rows, n_tiles]`` (``row_packets`` 1, or 128
+    for the union walk) over the ``[12, n_cols]`` plane. The caller counts
+    the launch."""
     import ctypes
 
     r = ctypes.c_int(o.shape[0])
-    dims = [ctypes.c_int(x) for x in (words.shape[1], tile // BLOCK, granule)]
-    out = item_search(
-        o, "search_words",
+    dims = [ctypes.c_int(x) for x in (words.shape[1], blocks_per_tile, granule,
+                                      row_packets)]
+    return item_search(
+        o, what,
         lambda lib, items, counter, keys, stream: lib.rtc_words_items(
             words.data_ptr(), r, *dims, items.data_ptr(), counter.data_ptr(),
             keys.data_ptr(), stream),
         lambda lib, ends, counter, keys, stream: lib.rtc_search_words(
             o.data_ptr(), d.data_ptr(), words.data_ptr(), ends.data_ptr(),
-            plane.data_ptr(), orig_idx.data_ptr(), r, *dims,
-            counter.data_ptr(), keys.data_ptr(), stream))
-    search_words.launches += 1
-    return out
+            plane.data_ptr(), orig_idx.data_ptr(), r, ctypes.c_int(plane.shape[1]),
+            *dims, counter.data_ptr(), keys.data_ptr(), stream))
 
 
 search_words.launches = 0

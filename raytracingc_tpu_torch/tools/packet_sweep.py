@@ -1,5 +1,5 @@
-"""Packet-kernel timing (K2-K7): the bitmask, packed, range and words
-wrappers over the timed scenes and their ray sets.
+"""Search-kernel timing (K2-K9): the bitmask, packed, range, words, MXU and
+union-walk wrappers over the timed scenes and their ray sets.
 
 Times the bitmask (K2), packed (K3), range (K4, K5) and words (K6, K7)
 wrappers by CUDA events on chip_smoke.py's timed packet scenes (box_scene
@@ -13,6 +13,15 @@ scenes also on packets of which some span the whole plane
 bit. On the words scenes it also times K3's kernel on the same words (one
 word per tile): one warp per packet walking the packet's whole list, with
 no work items, the yardstick of the words kernel's split.
+
+The program-union kernels run on their program union words
+(``culling.program_union_words``): the MXU kernel K8 (``RTC_KERNEL=mxu``)
+in both precisions on box_scene tessellated to 640 and 2,560 triangles and
+on an 8,192-triangle soup (``tools/packets.py::soup_scene``), held to its
+plain version's winners on 99% of live lanes (chip_smoke.py phase 3c holds
+its contract) and printed with a digest of its result, so that two builds
+can be compared bit for bit; the union walk K9 at 10,240 triangles, bit
+for bit.
 
 It needs nothing newer than the package's first packet and range kernels,
 so this file, ``tools/packets.py`` and ``tools/__init__.py`` can be copied
@@ -28,13 +37,17 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import functools
+import hashlib
 import sys
+import types
 
 import numpy as np
 import torch
 
 from raytracingc_tpu_torch.ops import culling, search
-from raytracingc_tpu_torch.ops.accel import BLOCK
+from raytracingc_tpu_torch.ops.accel import BLOCK, build_accel
+from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu, search_mxu_reference
 from raytracingc_tpu_torch.ops.search_bitmask import (
     bitmask_table,
     search_bitmask,
@@ -50,6 +63,7 @@ from raytracingc_tpu_torch.ops.search_range import (
     search_range,
     search_range_reference,
 )
+from raytracingc_tpu_torch.ops.search_union import search_union, search_union_reference
 from raytracingc_tpu_torch.ops.search_words import (
     search_words,
     search_words_reference,
@@ -58,21 +72,29 @@ from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
 from raytracingc_tpu_torch.tools.packets import (
     DEAD,
     RAY_SETS,
+    SOUP_ORIGINS,
     packet_inputs,
+    soup_scene,
     wide_span_rays,
 )
 from raytracingc_tpu_torch.tools.union_walk_ab import BOX_SCENE, load_scene
 
-# (label, box_scene tessellation levels, knobs) of chip_smoke.py's timed
-# K2-K7 cases.
+# (label, box_scene tessellation levels or a soup's triangle count, knobs)
+# of chip_smoke.py's timed K2-K9 cases.
 RANGE = {"RTC_CULL": "range"}
 WORDS = {"RTC_STREAM_CULL": "words"}
+MXU = {"RTC_KERNEL": "mxu"}
 SCENES = (("K2 box 10,240", 5, {}), ("K3 box 40,960 resident", 6, {}),
           ("K3 box 163,840 streamed", 7, {}),
           ("K4 box 40,960 (RTC_CULL=range)", 6, RANGE),
           ("K5 box 163,840 streamed (RTC_CULL=range)", 7, RANGE),
           ("K6 box 40,960 resident (RTC_STREAM_CULL=words)", 6, WORDS),
-          ("K7 box 163,840 streamed (RTC_STREAM_CULL=words)", 7, WORDS))
+          ("K7 box 163,840 streamed (RTC_STREAM_CULL=words)", 7, WORDS),
+          ("K8 box 640 (RTC_KERNEL=mxu)", 3, MXU),
+          ("K8 box 2,560 (RTC_KERNEL=mxu)", 4, MXU),
+          ("K8 soup 8,192 (RTC_KERNEL=mxu)", "soup 8192", MXU),
+          ("K9 box 10,240 union walk", 5, {}))
+MXU_AGREE = 0.99  # share of live lanes whose K8 winner is the plain version's
 BOX_ORIGINS = ((-5.0, -5.0, -5.0), (5.0, 1.5, 5.0))  # inside box_scene's room
 
 
@@ -128,6 +150,64 @@ def case_calls(scene, o, d, alive):
             int(table.sum()) * culling.RAY_SUBLANES * BLOCK)
 
 
+def program_calls(scene, o, d, alive, union: bool):
+    """``({name: (kernel call, plain call)}, tested pairs)`` of the
+    program-union kernels on these rays' program words: K9 (``union``) or
+    K8 in both precisions."""
+    accel = scene.accel
+    words, flags = culling.program_union_words(*culling.packets(o, d, alive), accel)
+    pairs = (int(bitmask_table(words, accel.n_blocks).sum())
+             * culling.RAYS_PER_PROGRAM * BLOCK)
+    if union:
+        args = (o, d, words, flags, accel.packed_plane, accel.orig_idx)
+        return {"K9 union": (functools.partial(search_union, *args),
+                             functools.partial(search_union_reference, *args))}, pairs
+    calls = {}
+    for prec in ("split3", "highest"):
+        args = (o, d, words, flags, accel.mxu_coeffs, accel.orig_idx, prec, alive)
+        calls[f"K8 {prec}"] = (functools.partial(search_mxu, *args),
+                               functools.partial(search_mxu_reference, *args))
+    return calls, pairs
+
+
+def digest(dst, idx) -> str:
+    """A short hash of a search result's bits."""
+    h = hashlib.sha256(dst.cpu().numpy().tobytes())
+    h.update(idx.cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def load(levels, dev, rng):
+    """box_scene tessellated ``levels`` times, or ``"soup N"``: an N-triangle
+    soup, with its accel."""
+    if isinstance(levels, int):
+        return load_scene(BOX_SCENE, levels, dev)
+    tris, n = soup_scene(rng, int(levels.split()[1]))
+    tris = tris.to(dev)
+    return types.SimpleNamespace(triangles=tris, n_triangles=n,
+                                 accel=build_accel(tris, n))
+
+
+def time_programs(label, scene, set_name, o, d, alive, iters):
+    """The program-union kernels of one case: each call against its plain
+    version, then timed."""
+    union = label.startswith("K9")
+    calls, pairs = program_calls(scene, o, d, alive, union)
+    for name, (kernel, plain) in calls.items():
+        (kd, ki), (pd, pi) = kernel(), plain()
+        if union:
+            ok = torch.equal(ki, pi) and torch.equal(kd.view(torch.int32),
+                                                     pd.view(torch.int32))
+        else:
+            ok = float((ki == pi)[alive].float().mean()) >= MXU_AGREE
+        if not ok:
+            raise AssertionError(f"{label} {set_name} {name}: the wrapper differs "
+                                 f"from the plain version")
+        print(f"[wrappers] {label} {set_name} ({name}; {pairs} tested pairs): "
+              f"wrapper {cuda_ms(kernel, iters):.4f} ms, result digest "
+              f"{digest(kd, ki)}", flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="python -m raytracingc_tpu_torch.tools.packet_sweep",
                                 description=__doc__.splitlines()[0])
@@ -150,13 +230,17 @@ def main(argv: list[str] | None = None) -> int:
     for label, levels, knobs in SCENES:
         if args.match not in label:
             continue
-        scene = load_scene(BOX_SCENE, levels, dev)
+        scene = load(levels, dev, rng)
+        origins = BOX_ORIGINS if isinstance(levels, int) else SOUP_ORIGINS
         ray_sets = dict(RAY_SETS)
-        if knobs:  # the range and words scenes
+        if knobs in (RANGE, WORDS):
             ray_sets["whole-plane"] = lambda *a: wide_span_rays(*a, scene.accel)
         for set_name, make in ray_sets.items():
             o, d, alive = (torch.from_numpy(x).to(dev)
-                           for x in make(rng, args.rays, *BOX_ORIGINS))
+                           for x in make(rng, args.rays, *origins))
+            if knobs == MXU or label.startswith("K9"):
+                time_programs(label, scene, set_name, o, d, alive, args.iters)
+                continue
             with knobs_set(knobs):
                 way, wrapper, plain, pairs = case_calls(scene, o, d, alive)
             want_d, want_i = wrapper()

@@ -10,7 +10,9 @@ tool: importing it runs nothing.
   independent unit directions, as the packets of compacted lanes after a
   diffuse bounce;
 * :func:`wide_span_rays`: coherent packets, some of which span the whole
-  plane (their lists hold the plane's first and last block).
+  plane (their lists hold the plane's first and last block);
+* :func:`soup_scene`: a seeded triangle soup with equal-distance
+  duplicates, and the box its rays start in.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from raytracingc_tpu_torch.ops import culling, search
 from raytracingc_tpu_torch.ops.accel import BLOCK
 
 DEAD = 0.3  # share of dead lanes in both ray sets
+SOUP_ORIGINS = ((-8.0, -8.0, -8.0), (8.0, 8.0, 8.0))  # around soup_scene's cube
 
 
 def _packet_origins(rng, n_rays: int, lo, hi):
@@ -87,3 +90,26 @@ def packet_inputs(scene, o, d, alive):
     words = culling.packet_tile_words_multi(o_p, d_p, a_p, accel, way.n_tiles,
                                             way.tile // BLOCK, way.granule)
     return way, words, plane, oi
+
+
+def soup_scene(rng, n_live: int):
+    """``(Triangles, n_live)``: a soup of ``n_live`` triangles in a 12-unit
+    cube, every 7th duplicating an earlier one (so that equal distances
+    occur), every other normal flipped (both backface-cull outcomes). Edges
+    shrink as the count grows, so that every soup has about the same
+    surface area and most rays from :data:`SOUP_ORIGINS` hit."""
+    from raytracingc_tpu_torch.scene.builder import triangles_from_arrays
+
+    edge = 0.15 * (163840 / n_live) ** 0.5
+    a = rng.uniform(-6, 6, (n_live, 3))
+    b = a + rng.normal(size=(n_live, 3)) * edge
+    c = a + rng.normal(size=(n_live, 3)) * edge
+    verts = np.stack([a, b, c], axis=1).astype(np.float32)
+    dup = np.arange(7, n_live, 7)
+    verts[dup] = verts[dup // 2]
+    nrm = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
+    nrm[::2] *= -1.0
+    return triangles_from_arrays(
+        verts, nrm.astype(np.float32), np.full((n_live, 3), 0.5, np.float32),
+        np.zeros(n_live, np.float32), np.zeros(n_live, np.float32))

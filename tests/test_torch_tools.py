@@ -220,6 +220,28 @@ def test_packet_inputs_follow_the_dispatch(monkeypatch):
         assert (got_i[alive] >= 0).sum() > 300
 
 
+@pytest.mark.parametrize("levels", [3, "soup 1024"])
+def test_packet_sweep_program_calls(levels):
+    """packet_sweep's program-union cases on the CPU (the plain versions):
+    K8 in both precisions on its scenes' kinds, and K9, each call equal to
+    its plain call; the digest tells results apart."""
+    rng = np.random.default_rng(8)
+    scene = packet_sweep.load(levels, "cpu", rng)
+    origins = packet_sweep.BOX_ORIGINS if levels == 3 else packets.SOUP_ORIGINS
+    o, d, alive = (torch.from_numpy(x) for x in packets.packet_rays(rng, 1100, *origins))
+    digests = set()
+    for union in (False, True):
+        calls, pairs = packet_sweep.program_calls(scene, o, d, alive, union)
+        assert sorted(calls) == (["K9 union"] if union else ["K8 highest", "K8 split3"])
+        assert pairs > 0 and pairs % (1024 * 128) == 0
+        for kernel, plain in calls.values():
+            (kd, ki), (pd, pi) = kernel(), plain()
+            assert torch.equal(ki, pi) and torch.equal(kd, pd)
+            assert (ki[alive] >= 0).sum() > 100
+            digests.add(packet_sweep.digest(kd, ki))
+    assert len(digests) == 3  # the two precisions and K9 differ somewhere
+
+
 def test_chunk_profile_busy_union():
     assert chunk_profile.busy_us([]) == 0.0
     assert chunk_profile.busy_us([(5, 6), (0, 2), (1, 3), (5.5, 5.75)]) == 4.0
