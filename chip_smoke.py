@@ -280,6 +280,50 @@ MAX_MEAN_ABS = 1e-3
 MAX_COUNT_REL = 1e-3
 
 
+# Phase 6: the integrator's other modes on run (b)'s scene at 1920x1080, 8
+# bounces, spp cut from 8 to 4 (so that sample_group 2 and "auto", which
+# takes 4 at 65,536-ray chunks, differ): the differentiable fast forward
+# and sample_group 2 and "auto" equal production bit for bit (values and
+# traced rays); the plain full-width oracle (compact=False) agrees to float
+# re-association (REASSOC, the JAX package's bound in
+# tests/test_utils.py::test_early_exit_matches_scan) with equal counts.
+MODES_RUN = dict(width=1920, height=1080, spp=4, max_bounce=8)
+REASSOC = dict(rtol=3e-6, atol=3e-7)
+
+# Run (q): the training path on box_scene --tessellate 4 (2,560 triangles,
+# the bitmask route K2) at the JAX bench's train defaults (bench.py:76-82):
+# 256x256, spp 2, 4 bounces. TRAIN_STEPS steps of fit_scene on the
+# albedo, then on geometry (the face normals and vertices b, c: the
+# substring rule makes "triangles.a" match albedo too) with the accel
+# refreshed every step, then of fit_camera. The target is the scene's own
+# render (production mode); the albedo run starts from albedo x 0.5, the
+# geometry run from the true scene against a 0.9-dimmed target, the camera
+# run from the origin moved by (0.12, -0.08, 0.1).
+TRAIN = dict(width=256, height=256, spp=2, max_bounce=4)
+TRAIN_TESSELLATE = 4
+TRAIN_STEPS = 5
+TRAIN_GEOMETRY = ["triangles.normal", "triangles.b", "triangles.c"]
+# Gradients on the card against the CPU port, one step at 32x32 (the
+# scene's leaves, loss mean(radiance * w) with w from a seeded generator):
+# per leaf, |g_cuda - g_cpu|_2 <= GRAD_REL |g_cpu|_2; CUDA's and the CPU's
+# log/cos/pow differ by ulps (phase 5), which moves gradients by roughly
+# that much, and a path that turns at an edge would move a leaf by more.
+GRAD_RUN = dict(width=32, height=32, spp=2, max_bounce=4)
+GRAD_REL = 1e-3
+# The FD check on the card: tests/test_diff.py's settings and bar (>= 0.9)
+# on box_scene --tessellate 4 with its albedo ties broken from FD_SEED, at
+# 16x16 (tests/test_diff.py's 8x8 sees too few pixels of this scene: on the
+# CPU port its rate read 0.83-0.92 over three untying seeds, the misses on
+# leaves whose gradient is near the FD noise, e.g. .env.sun_focus), with 8
+# probes a leaf (CPU port: 0.97-0.98 over the same seeds, every miss on
+# .triangles.emission, whose FD is float32 noise beside the emitter's bright
+# pixels).
+FD_RUN = dict(width=16, height=16, spp=2, max_bounce=2, eps=1e-3, rtol=2e-2,
+              atol=5e-6, probes_per_leaf=8)
+FD_SEED = 20261017
+FD_BAR = 0.9
+
+
 def phase(name: str, t0: float, msg: str) -> None:
     print(f"[{name}] {time.time() - t0:.3f}s {msg}", flush=True)
 
@@ -926,12 +970,51 @@ def check_union_kernel(dev, rng, cases=UNION_CASES, rays=PHASE3_RAYS):
     return timings, max_err, work
 
 
+def l2_read_rate(dev) -> float:
+    """Bytes per second that one torch.sum reads from a 24 MiB tensor held in
+    the 50 MB L2 (after a warm-up): the L2 rate of K10's staging floor."""
+    import torch
+
+    from raytracingc_tpu_torch.tools import cuda_ms
+
+    a = torch.ones(6 << 20, dtype=torch.float32, device=dev)
+    return a.numel() * 4 / (cuda_ms(lambda: a.sum(), 50) * 1e-3)
+
+
+def smem_device_ms(sm, x, multicast: bool) -> float:
+    """Device milliseconds per K10 launch from torch.profiler: the mean of
+    the probe kernel's device durations over 20 launches."""
+    import torch
+
+    from raytracingc_tpu_torch.tools import smem_probe as sp
+
+    sp.smem_probe(sm, x, multicast=multicast)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):
+            sp.smem_probe(sm, x, multicast=multicast)
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "device_time_total", 0) or getattr(
+        e, "cuda_time_total", 0)
+    durs = [dev_us(e) / max(e.count, 1) for e in prof.key_averages()
+            if "smem_probe" in e.key and dev_us(e) > 0]
+    return durs[0] / 1e3 if durs else float("nan")
+
+
 def check_smem_probe(dev):
     """Phase 3e: every ladder size up to the device's opt-in limit runs and
     equals the plain version bit for bit; the first size past it is refused
-    by the launch with cudaErrorInvalidValue. Returns ``(limit bytes,
-    kernel ms, plain ms, (operations, bytes) the function needs)`` at the
-    limit and the ladder's ``(n, equal, refusal)``."""
+    by the launch with cudaErrorInvalidValue; in both variants (one CTA a
+    tile; 8-CTA clusters with the table multicast). Returns ``(limit bytes,
+    {timing: ms} at the limit, (operations, bytes) the function needs, the
+    staging floor's bytes, the ladder's [(n, equal, refusal)])``. Timings:
+    ``ms`` the wrapper's call by CUDA events (host included, as the kernel
+    line's time), ``set every call`` the same with the limit raised again
+    before each launch (the parent's host work), ``device`` 100 launches
+    from one C call between two events, per launch, ``profiler`` the kernel's
+    device duration, each also for the multicast variant; ``plain`` the
+    plain version."""
     import torch
 
     from raytracingc_tpu_torch.tools import cuda_ms
@@ -939,27 +1022,220 @@ def check_smem_probe(dev):
 
     limit = sp.optin_bytes(dev)
     sizes = sp.ladder(limit)
-    results = sp.run_ladder(dev, sizes)
     fits = [n for n in sizes if n * 4 <= limit]
     want = fits + [next(n for n in sizes if n * 4 > limit)]
-    if [n for n, _, _ in results] != want:
-        raise AssertionError(f"smem_probe ran {[n for n, _, _ in results]}, "
-                             f"expected {want}")
-    for n, equal, err in results:
-        if n * 4 <= limit and (err is not None or not equal):
-            raise AssertionError(f"smem_probe n={n}: {err or 'differs from plain'}")
-        if n * 4 > limit and (err is None or err.code != sp.CUDA_ERROR_INVALID_VALUE):
-            raise AssertionError(f"smem_probe n={n} past the limit: {err!r}")
+    for multicast in (False, True):
+        results = sp.run_ladder(dev, sizes, multicast=multicast)
+        if [n for n, _, _ in results] != want:
+            raise AssertionError(f"smem_probe multicast={multicast} ran "
+                                 f"{[n for n, _, _ in results]}, expected {want}")
+        for n, equal, err in results:
+            if n * 4 <= limit and (err is not None or not equal):
+                raise AssertionError(f"smem_probe multicast={multicast} n={n}: "
+                                     f"{err or 'differs from plain'}")
+            if n * 4 > limit and (err is None
+                                  or err.code != sp.CUDA_ERROR_INVALID_VALUE):
+                raise AssertionError(f"smem_probe multicast={multicast} n={n} past "
+                                     f"the limit: {err!r}")
+        if not multicast:
+            ladder = results
+    # Odd sizes and the smallest tables: every body/tail split.
+    x = torch.ones(sp.X_SHAPE, dtype=torch.float32, device=dev)
+    for n in (8, 9, 10, 11, 1001, limit // 4 - 1, limit // 4 - 2, limit // 4 - 3):
+        sm = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=dev)
+        for multicast in (False, True):
+            if not torch.equal(sp.smem_probe(sm, x, multicast=multicast),
+                               sp.smem_probe_reference(sm, x)):
+                raise AssertionError(f"smem_probe multicast={multicast} n={n}: "
+                                     f"differs from plain")
     n = limit // 4
     sm = torch.arange(n, dtype=torch.int32, device=dev)
-    x = torch.ones(sp.X_SHAPE, dtype=torch.float32, device=dev)
     out = sp.smem_probe(sm, x)
     # Per tile of x: three table words read, two int adds and a conversion;
     # per element of x: one add.
     tiles = x.shape[0] // sp.TILE_ROWS
     work = (x.numel() + 3 * tiles, n_bytes(x, out) + 3 * 4 * tiles)
-    return (limit, cuda_ms(lambda: sp.smem_probe(sm, x), 50),
-            cuda_ms(lambda: sp.smem_probe_reference(sm, x), 50), work, results)
+    ms = {}
+    for tag, mc in (("", False), (" multicast", True)):
+        ms["ms" + tag] = cuda_ms(lambda: sp.smem_probe(sm, x, multicast=mc), 50)
+        ms["set every call" + tag] = cuda_ms(
+            lambda: sp.smem_probe(sm, x, multicast=mc, set_limit=True), 50)
+        ms["device" + tag] = cuda_ms(
+            lambda: sp.smem_probe(sm, x, multicast=mc, launches=100), 5) / 100
+        ms["profiler" + tag] = smem_device_ms(sm, x, mc)
+    ms["plain"] = cuda_ms(lambda: sp.smem_probe_reference(sm, x), 50)
+    return limit, ms, work, n * 4 * tiles, ladder
+
+
+def check_modes(dev, run=MODES_RUN) -> dict:
+    """Phase 6. Returns ``{mode: (seconds, traced rays, search_brute
+    launches)}``; raises on a broken identity."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.ops.search_brute import search_brute
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+
+    scene = scene_from_triangles_txt(BOX_SCENE).to(dev)
+    cam = Camera.look_at(device=dev)
+    modes = {"production": dict(early_exit=True),
+             "differentiable": dict(early_exit=False),
+             "sample_group 2": dict(early_exit=False, sample_group=2),
+             "sample_group auto": dict(early_exit=True, sample_group="auto"),
+             "oracle (compact=False)": dict(early_exit=False, compact=False)}
+    out, imgs = {}, {}
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    with torch.no_grad():
+        for label, kw in modes.items():
+            search_brute.launches = 0
+            t = time.time()
+            img, n = render(scene, cam, **run, **kw)
+            sync()
+            out[label] = (time.time() - t, n, search_brute.launches)
+            imgs[label] = img
+            if dev.type == "cuda" and search_brute.launches < 1:
+                raise AssertionError(f"modes {label}: search_brute never launched")
+    prod, n = imgs["production"], out["production"][1]
+    for label, img in imgs.items():
+        if out[label][1] != n:
+            raise AssertionError(f"modes {label}: {out[label][1]} traced rays, "
+                                 f"production {n}")
+        if label.startswith("oracle"):
+            np.testing.assert_allclose(img.cpu().numpy(), prod.cpu().numpy(),
+                                       **REASSOC)
+        elif not torch.equal(img.view(torch.int32), prod.view(torch.int32)):
+            raise AssertionError(f"modes {label}: not production's bits")
+    return out
+
+
+def train_scene(dev, tessellate=TRAIN_TESSELLATE):
+    """box_scene tessellated, with its accel, as the CLI's --tessellate."""
+    import dataclasses
+
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt, tessellate as tess
+
+    scene = scene_from_triangles_txt(BOX_SCENE)
+    tris, n = tess(scene.triangles, scene.n_triangles, levels=tessellate)
+    return dataclasses.replace(scene, triangles=tris, n_triangles=n,
+                               accel=None).with_accel().to(dev)
+
+
+def untie_albedo(scene, seed=FD_SEED):
+    """The scene with each albedo channel scaled by U(0.94, 1) from a
+    seeded generator: no two channels of a material stay equal (the
+    roulette's max has a kink at tied channels, where FD straddles it and
+    autodiff takes one side; tests/test_diff.py unties its scene for the
+    same reason), and every albedo stays in [0, 1]."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+    rng = np.random.default_rng(seed)
+    leaves = scene_leaves(scene)
+    for k in (".triangles.albedo", ".spheres.albedo"):
+        scale = rng.uniform(0.94, 1.0, tuple(leaves[k].shape)).astype(np.float32)
+        leaves[k] = leaves[k] * torch.from_numpy(scale).to(scene.device)
+    return with_leaves(scene, leaves)
+
+
+def scene_grads(scene, cam, run, seed=0):
+    """``({leaf: grad}, traced rays)`` of ``mean(radiance * w)`` through the
+    differentiable fast forward on the scene's device; ``w`` standard normal
+    from a CPU generator seeded with ``seed``."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import primary_rays
+    from raytracingc_tpu_torch.render.integrator import trace_accumulate
+    from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+    dev = scene.device
+    w_, h_ = run["width"], run["height"]
+    o, d = primary_rays(cam.to(dev), w_, h_)
+    w = torch.randn((w_ * h_, 3), generator=torch.Generator().manual_seed(seed))
+    leaves = {k: t.detach().clone().requires_grad_(True)
+              for k, t in scene_leaves(scene).items()}
+    rad, n = trace_accumulate(o, d, with_leaves(scene, leaves),
+                              torch.arange(w_ * h_, device=dev), seed=seed,
+                              spp=run["spp"], max_bounce=run["max_bounce"])
+    (rad * w.to(dev)).mean().backward()
+    return {k: (t.grad if t.grad is not None else torch.zeros_like(t)).cpu()
+            for k, t in leaves.items()}, n
+
+
+def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE):
+    """Run (q)'s training: fit_scene on the albedo, on geometry (the accel
+    refreshed every step) and fit_camera, ``steps`` each. Returns ``{name:
+    (losses, seconds, search_bitmask launches)}`` and the forward and
+    backward seconds of one albedo step, timed apart; raises on a non-finite or (albedo) not
+    falling loss, or a differentiable forward other than production's
+    bits."""
+    import dataclasses
+
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera, primary_rays
+    from raytracingc_tpu_torch.diff import fit_camera, fit_scene
+    from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
+    from raytracingc_tpu_torch.render.integrator import trace_accumulate
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    scene = train_scene(dev, tessellate)
+    cam = Camera.look_at(device=dev)
+    shape = dict(spp=run["spp"], max_bounce=run["max_bounce"])
+    with torch.no_grad():
+        target, _ = render(scene, cam, run["width"], run["height"], **shape)
+    leaves = scene_leaves(scene)
+    leaves[".triangles.albedo"] = leaves[".triangles.albedo"] * 0.5
+    dim = with_leaves(scene, leaves)
+
+    # One step timed apart: the forward under autograd (its values are
+    # production's bits), then the backward.
+    o, d = primary_rays(cam, run["width"], run["height"])
+    ids = torch.arange(run["width"] * run["height"], device=dev)
+    params = {k: t.detach().clone().requires_grad_(k == ".triangles.albedo")
+              for k, t in scene_leaves(dim).items()}
+    sync()
+    t = time.time()
+    rad, _ = trace_accumulate(o, d, with_leaves(dim, params), ids, seed=0, **shape)
+    loss = ((rad - target.reshape(-1, 3)) ** 2).mean()
+    sync()
+    t_fwd = time.time() - t
+    t = time.time()
+    loss.backward()
+    sync()
+    t_bwd = time.time() - t
+    with torch.no_grad():
+        prod, _ = trace_accumulate(o, d, dim, ids, seed=0, early_exit=True, **shape)
+    if not torch.equal(rad.detach().view(torch.int32), prod.view(torch.int32)):
+        raise AssertionError("run q: the differentiable forward under autograd is "
+                             "not production's bits")
+
+    out = {}
+    for name, fit in (
+            ("albedo", lambda: fit_scene(dim, target, cam, steps=steps,
+                                         learning_rate=5e-2, trainable=["albedo"],
+                                         **shape)),
+            ("geometry", lambda: fit_scene(scene, target * 0.9, cam, steps=steps,
+                                           learning_rate=1e-2,
+                                           trainable=TRAIN_GEOMETRY, **shape)),
+            ("camera", lambda: fit_camera(scene, target, dataclasses.replace(
+                cam, origin=cam.origin + torch.tensor([0.12, -0.08, 0.1], device=dev)),
+                steps=steps, learning_rate=1e-2, **shape))):
+        sync()
+        k2 = search_bitmask.launches
+        t = time.time()
+        _, losses = fit()
+        sync()
+        out[name] = (losses, time.time() - t, search_bitmask.launches - k2)
+    albedo = out["albedo"][0]
+    if not albedo[-1] < albedo[0]:
+        raise AssertionError(f"run q: the albedo loss did not fall: {albedo}")
+    return out, t_fwd, t_bwd
 
 
 def main() -> int:
@@ -1109,14 +1385,20 @@ def main() -> int:
         f"{union_bound[label][0] / ms['search_union']:.1%} of bound"
         for label, ms in union_times.items()))
 
-    # 3e. The shared-memory probe's ladder.
+    # 3e. The shared-memory probe's ladder, in both variants, and its times.
     t = time.time()
-    smem_limit, smem_ms, smem_plain_ms, smem_work, ladder = check_smem_probe(dev)
+    smem_limit, smem_ms, smem_work, smem_staged, ladder = check_smem_probe(dev)
+    l2 = l2_read_rate(dev)
+    smem_floor = {"one CTA a tile": smem_staged / l2 * 1e3,
+                  "multicast": smem_staged / smem_probe.CLUSTER / l2 * 1e3}
     phase("kernel", t, f"smem_probe: opt-in limit {smem_limit} bytes "
           f"({smem_limit // 4} words); " + ", ".join(
               f"{n}: {'refused (' + str(err.code) + ')' if err else 'OK, == plain'}"
-              for n, _, err in ladder) + f"; at the limit kernel {smem_ms:.4f} "
-          f"ms, plain {smem_plain_ms:.4f} ms")
+              for n, _, err in ladder) + "; the same with multicast; odd sizes == "
+          f"plain; at the limit: " + ", ".join(
+              f"{k} {v:.5f} ms" for k, v in smem_ms.items())
+          + f"; L2 read rate (torch.sum, 24 MiB) {l2 / 1e12:.3f} TB/s, staging "
+          f"floor " + ", ".join(f"{k} {v:.5f} ms" for k, v in smem_floor.items()))
 
     # 4. Main path: the CLI in default mode and under the knobs that pick a
     # kernel, then the two tools, on the card. Every kernel's count is set
@@ -1238,6 +1520,54 @@ def main() -> int:
           f"bounces: rays cuda {n_g} / cpu {n_c}, {close.mean():.4f} of pixels "
           f"within {PIXEL_RTOL:g}, mean |diff| {mean_abs:.3g}")
 
+    # 6. The integrator's other modes, at 1080p on run (b)'s scene.
+    t = time.time()
+    modes = check_modes(dev)
+    phase("modes", t, f"{MODES_RUN}: differentiable, sample_group 2 and auto == "
+          f"production bitwise, oracle within {REASSOC}, counts equal; " + ", ".join(
+              f"{k} {s:.3f}s ({n} rays, {k1} search_brute launches)"
+              for k, (s, n, k1) in modes.items()))
+
+    # Run (q): the training path, counted like the main runs.
+    t = time.time()
+    for fn in kernels.values():
+        fn.launches = 0
+    train, t_fwd, t_bwd = run_training(dev)
+    launched = {k: fn.launches for k, fn in kernels.items()}
+    for k, v in launched.items():
+        total_launches[k] += v
+    others = {k: v for k, v in launched.items() if k != "search_bitmask" and v}
+    if launched["search_bitmask"] < 1 or others:
+        raise AssertionError(f"run q: launches {launched}")
+    phase("main", t, f"q: training, box_scene --tessellate {TRAIN_TESSELLATE}, "
+          f"{TRAIN}: one albedo step forward {t_fwd:.3f}s (production's bits), "
+          f"backward {t_bwd:.3f}s, backward/forward {t_bwd / t_fwd:.2f}; " + "; ".join(
+              f"{k}: {len(ls)} steps, {sec / len(ls):.3f} s/step, {k2 / len(ls):g} "
+              f"search_bitmask launches/step, loss {ls[0]:.6g} -> {ls[-1]:.6g}"
+              for k, (ls, sec, k2) in train.items())
+          + f"; {launched['search_bitmask']} search_bitmask launches in all")
+
+    t = time.time()
+    sc = train_scene(dev)
+    g_gpu, n_gpu = scene_grads(sc, cam, GRAD_RUN)
+    g_cpu, n_cpu = scene_grads(sc.to("cpu"), cam.to("cpu"), GRAD_RUN)
+    rel = {k: float((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+           for k in g_cpu if float(g_cpu[k].norm()) > 0}
+    worst = max(rel, key=rel.get)
+    if rel[worst] > GRAD_REL or not all(torch.isfinite(g).all() for g in g_gpu.values()):
+        raise AssertionError(f"gradients cuda vs cpu: {rel}")
+    from raytracingc_tpu_torch.diff import pixel_grad_check
+
+    fd = pixel_grad_check(untie_albedo(sc), cam, **FD_RUN)
+    if fd["pass_rate"] < FD_BAR:
+        raise AssertionError(f"FD pass rate {fd['pass_rate']} < {FD_BAR}: " + str(
+            {k: (v["pass"], v["total"]) for k, v in fd.items() if k != "pass_rate"}))
+    phase("train", t, f"gradients at {GRAD_RUN}: cuda vs cpu ({n_gpu} / {n_cpu} "
+          f"rays) on {len(rel)} nonzero leaves, worst relative L2 {rel[worst]:.3g} "
+          f"({worst}); FD pass rate {fd['pass_rate']:.4f} on box_scene "
+          f"--tessellate {TRAIN_TESSELLATE} untied, {FD_RUN}: " + ", ".join(
+              f"{k} {v['pass']}/{v['total']}" for k, v in fd.items() if k != "pass_rate"))
+
     # The kernel line's times are those at the main path's shapes: R =
     # TIMED_RAYS with box_scene at 640 (brute; mxu, split3, as in run (k)),
     # 10,240 (bitmask; union, the union tool's scene) and 163,840 (packed,
@@ -1269,7 +1599,7 @@ def main() -> int:
          (union_times[UNION_TIMED]["search_union"],
           union_times[UNION_TIMED]["search_union plain"]),
          union_bound[UNION_TIMED], union_err),
-        ("smem_probe", "tools/smem_probe.py:20", (smem_ms, smem_plain_ms),
+        ("smem_probe", "tools/smem_probe.py:20", (smem_ms["ms"], smem_ms["plain"]),
          bound(smem_work[0], 0, smem_work[1]), 0.0),
     ]
     print(nvidia_smi())

@@ -11,7 +11,10 @@ make both packages compute on the same scene::
 
 :func:`accel_from_numpy` carries the JAX scene's ``TriangleAccel`` across
 the same way (``accel_arrays`` shows the fields), and :func:`scene_to_numpy`
-goes the other way, for round-trip checks.
+goes the other way, for round-trip checks. :func:`leaf_arrays` carries a
+JAX Scene-shaped pytree (a scene, or ``jax.grad``'s gradient of one) into
+the port's named leaves, and :func:`pose_arrays` a JAX camera's pose
+parameters, so that gradients compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -24,7 +27,13 @@ import torch
 
 from raytracingc_tpu_torch.camera import Camera
 from raytracingc_tpu_torch.ops.accel import TriangleAccel
-from raytracingc_tpu_torch.scene.types import EnvParams, Scene, Spheres, Triangles
+from raytracingc_tpu_torch.scene.types import (
+    LEAF_PATHS,
+    EnvParams,
+    Scene,
+    Spheres,
+    Triangles,
+)
 
 TRIANGLE_FIELDS = tuple(f.name for f in dataclasses.fields(Triangles))
 SPHERE_FIELDS = tuple(f.name for f in dataclasses.fields(Spheres))
@@ -112,3 +121,24 @@ def scene_to_numpy(scene: Scene) -> dict:
         "n_triangles": scene.n_triangles,
         "n_spheres": scene.n_spheres,
     }
+
+
+def leaf_arrays(tree) -> dict[str, np.ndarray]:
+    """``{".triangles.a": ..., ...}``: the :data:`LEAF_PATHS` leaves of
+    anything shaped like the JAX package's Scene pytree (a scene or a
+    gradient of one), as numpy. Imports nothing of JAX."""
+    out = {}
+    for name in LEAF_PATHS:
+        _, group, field = name.split(".")
+        out[name] = np.asarray(getattr(getattr(tree, group), field))
+    return out
+
+
+def pose_arrays(pose) -> dict[str, np.ndarray]:
+    """The camera pose parameters of ``fit_camera``, ``{"origin", "dir"}``
+    as numpy, from the JAX package's params dict (or its gradient) or from
+    a camera (``origin`` and ``ez``)."""
+    if isinstance(pose, Mapping):
+        return {k: np.asarray(pose[k]) for k in ("origin", "dir")}
+    return {"origin": np.asarray(pose.origin), "dir": np.asarray(pose.ez)}
+

@@ -148,6 +148,53 @@ def build_accel(tris: Triangles, n_live: int) -> TriangleAccel:
     )
 
 
+def refresh_accel(accel: TriangleAccel, tris: Triangles, n_live: int) -> TriangleAccel:
+    """Recompute the accel's values from ``tris`` on its static permutation.
+
+    Counterpart of the JAX package's ``refresh_accel``, the accel of
+    geometry training: ``build_accel`` freezes a copy of the triangles, which
+    goes stale once vertices move. This keeps the host-built Morton order
+    (``orig_idx``, ``perm_of_orig``) and regenerates, with tensor ops on
+    ``tris``'s device, everything the kernels read: the permuted triangles,
+    the live-only block AABBs (padding rows masked with ``±_AABB_BIG``, so a
+    padding-only block keeps its inverted never-hit box) and the ``(12, T)``
+    plane. The result equals ``build_accel`` bit for bit on the same geometry
+    and permutation, and stays exact for any geometry; only the culling
+    quality ages as the vertices leave their Morton order. ``mxu_coeffs`` is
+    None: the training path never takes the mxu route.
+    """
+    t = tris.count
+    if accel.perm_of_orig is None:
+        raise ValueError("refresh_accel needs a host-built accel; a trivial accel "
+                         "carries no permutation to refresh")
+    if accel.orig_idx.shape[0] != t:
+        raise ValueError(f"accel covers {accel.orig_idx.shape[0]} triangle rows, "
+                         f"the triangles have {t}")
+    # Padding slots carry PAD_ORIG_IDX: clipped onto row t - 1, an all-zero
+    # padding row whenever padding slots exist (n_live < t).
+    src = accel.orig_idx.long().clamp_max(t - 1)
+    permuted = Triangles(**{f.name: getattr(tris, f.name)[src]
+                            for f in dataclasses.fields(Triangles)})
+    live = (torch.arange(t, device=src.device) < n_live)[:, None]
+
+    def bound(pick, fill):
+        a, b, c = (torch.where(live, v, fill) for v in (permuted.a, permuted.b,
+                                                        permuted.c))
+        return pick(pick(a, b), c).reshape(t // BLOCK, BLOCK, 3)
+
+    plane = torch.cat([permuted.a.T, (permuted.b - permuted.a).T,
+                       (permuted.c - permuted.a).T, permuted.normal.T], dim=0)
+    return TriangleAccel(
+        triangles=permuted,
+        orig_idx=accel.orig_idx,
+        aabb_lo=bound(torch.minimum, _AABB_BIG).amin(dim=1),
+        aabb_hi=bound(torch.maximum, -_AABB_BIG).amax(dim=1),
+        mxu_coeffs=None,
+        perm_of_orig=accel.perm_of_orig,
+        packed_plane=plane,
+    )
+
+
 def trivial_accel(tris: Triangles) -> TriangleAccel:
     """Identity accel: no reorder, every block 'always hit' (brute force)."""
     t = tris.count

@@ -23,12 +23,27 @@ def smoothstep(lo: float, hi: float, x: torch.Tensor) -> torch.Tensor:
     return t * t * (3.0 - 2.0 * t)
 
 
+# torch's CPU pow rounds differently in its vectorised loop and in the
+# scalar loop over a tensor's last few elements, so a lane's value would
+# depend on its position; on the CPU every lane goes through the vector loop.
+_CPU_VEC_PAD = 64
+
+
+def _pow(x: torch.Tensor, p) -> torch.Tensor:
+    """``x ** p`` whose value per element does not depend on its position."""
+    if x.device.type != "cpu":
+        return x**p
+    flat = x.reshape(-1)
+    pad = -flat.numel() % _CPU_VEC_PAD
+    return torch.cat([flat, flat.new_ones(pad)]).pow(p)[:flat.numel()].reshape(x.shape)
+
+
 def _safe_pow(x: torch.Tensor, p) -> torch.Tensor:
     """``x ** p`` for ``x >= 0``, 0 where ``x == 0``, with finite gradients
     there (the double-where form of the JAX package)."""
     pos = x > 0
     safe = torch.where(pos, x, 1.0)
-    return torch.where(pos, safe**p, 0.0)
+    return torch.where(pos, _pow(safe, p), 0.0)
 
 
 def environment_light(dirs: torch.Tensor, env: EnvParams) -> torch.Tensor:

@@ -1,8 +1,8 @@
-"""Path-tracing integrator: the production forward mode.
+"""Path-tracing integrator: the production forward, the differentiable fast
+forward and the plain full-width oracle.
 
-Counterpart of ``raytracingc_tpu/render/integrator.py`` with
-``trace_accumulate(early_exit=True, compact=True)``. One Monte-Carlo sample
-follows the reference ``calcColor``: on a hit the ray scatters to
+Counterpart of ``raytracingc_tpu/render/integrator.py``. One Monte-Carlo
+sample follows the reference ``calcColor``: on a hit the ray scatters to
 ``lerp(normalize(normal + random_unit), reflect(dir, normal), smoothness)``,
 emission is added weighted by the throughput BEFORE the albedo multiply, and
 Russian roulette on ``p = max(throughput)`` ends the path or renormalizes by
@@ -14,13 +14,19 @@ Here each bounce runs on exactly the live lanes, found with
 ``torch.nonzero``. Per-lane arithmetic, the RNG draw order (6 draws for the
 unit vector, then 1 for roulette) and the ``light0*spp + sum_s(rest_s)``
 association are those of the JAX package, so a lane's radiance does not
-depend on chunking or on which lanes were compacted with it.
+depend on chunking or on which lanes were compacted with it. Every gather
+and scatter on that path is out of place (``index_copy`` into a fresh
+tensor), so the same code is reverse-differentiable under autograd: the
+search runs under ``torch.no_grad`` and the resolve, shading, environment
+light and camera carry the gradients (the visibility-frozen subgradient).
 
 Traced rays are counted as Python integers (exact at any size; the JAX
 package sums them in float32).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -58,7 +64,9 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
 
     Lanes with ``active=False`` are dead from the start. Each bounce runs on
     the live lanes only and stops once none is left (the early-exit loop);
-    ``rays_traced`` counts one ray per live lane per bounce.
+    ``rays_traced`` counts one ray per live lane per bounce. A lane's
+    radiance is final once it dies, so it is written back when the live set
+    shrinks and at the end.
     """
     r = origins.shape[0]
     dev = origins.device
@@ -90,7 +98,8 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
         light = light + torch.where(hm, emitted * thr, 0.0)
         new_thr = thr * hit.albedo
 
-        # Russian roulette: survive iff p >= u.
+        # Russian roulette: survive iff p >= u. amax shares its gradient
+        # evenly between tied channels, as jnp.max does.
         state, u_rr = rng.next_uniform(state)
         p = new_thr.amax(dim=-1)
         survive = p >= u_rr
@@ -105,42 +114,126 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
         d = torch.where(hm, new_dir, d)
         alive = hit.hit & survive
 
-        light_full[lanes] = light
         keep = _live(alive)
         if keep.numel() < n:
+            light_full = light_full.index_copy(0, lanes, light)
             lanes, pos, d, thr, state, light = (
                 x[keep] for x in (lanes, pos, d, thr, state, light)
             )
-    return light_full, count
+    return light_full.index_copy(0, lanes, light), count
 
 
-_NOT_PORTED_MODES = (
-    "only the production forward mode (early_exit=True, compact=True, "
-    "sample_batch=1, sample_group=1) is ported; the other integrator modes "
-    "wait for ROADMAP Queue 1 item 4b"
-)
+def _trace_masked(origins, dirs, rng_state, scene: Scene, max_bounce: int,
+                  backend, active, first_hit: Hit):
+    """One sample per ray at full width, every lane through every bounce
+    under an ``alive`` mask: the JAX package's fixed-length scan
+    (``trace_paths`` with ``early_exit=False``), the plain oracle. Bounce 0
+    uses the precomputed primary hit ``first_hit``. Returns ``(radiance
+    [R, 3], rays_traced)``."""
+    r = origins.shape[0]
+    pos, d = origins, dirs
+    thr = torch.ones((r, 3), dtype=torch.float32, device=origins.device)
+    light = torch.zeros_like(thr)
+    alive, state, count = active, rng_state, 0
+    for bounce in range(max_bounce):
+        count += int(alive.sum())
+        hit = first_hit if bounce == 0 else resolve_hit(
+            pos, d, nearest_hit(pos, d, scene, backend=backend, alive=alive), scene)
+        state, unit = rng.next_unit_vector(state)
+        diffuse = _normalize(hit.normal + unit)
+        specular = _reflect(d, hit.normal)
+        smooth = hit.smoothness[:, None]
+        new_dir = (1.0 - smooth) * diffuse + smooth * specular
+
+        live_hit = (alive & hit.hit)[:, None]
+        emitted = hit.albedo * hit.emission[:, None]
+        light = light + torch.where(live_hit, emitted * thr, 0.0)
+        new_thr = thr * hit.albedo
+
+        state, u_rr = rng.next_uniform(state)
+        p = new_thr.amax(dim=-1)
+        survive = p >= u_rr
+        new_thr = new_thr / torch.where(p > 0.0, p, 1.0)[:, None]
+
+        live_miss = (alive & ~hit.hit)[:, None]
+        env = environment_light(d, scene.env)
+        light = light + torch.where(live_miss, env * thr, 0.0)
+
+        thr = torch.where(live_hit, new_thr, thr)
+        pos = torch.where(live_hit, hit.point, pos)
+        d = torch.where(live_hit, new_dir, d)
+        alive = alive & hit.hit & survive
+    return light, count
+
+
+def _scene_tensors(scene: Scene):
+    yield from (getattr(group, f.name) for group in (scene.triangles, scene.spheres,
+                                                     scene.env)
+                for f in dataclasses.fields(group))
+    if scene.resolve_perm is not None:
+        yield scene.resolve_perm
 
 
 def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
                      max_bounce: int, backend: str = "auto",
                      sample_offset: int = 0, active=None,
-                     early_exit: bool = True, sample_batch=1,
+                     early_exit: bool = False, sample_batch=1,
                      compact: bool = True, sample_group=1):
     """Average ``spp`` samples per ray: ``(radiance [R, 3], rays_traced)``.
 
     Each sample has its own RNG stream keyed by (seed, ray_id, sample_id),
-    ``sample_id`` running from ``sample_offset``. Only the production mode is
-    ported; other modes raise ``NotImplementedError``. The Morton-permuted
-    resolve table is attached once here (``with_perm_resolve``).
+    ``sample_id`` running from ``sample_offset``. Modes (``early_exit``,
+    ``compact``), as in the JAX package:
+
+    * ``(True, *)``: the production forward. Forward-only: with grad
+      enabled and any input requiring grad it raises ``ValueError`` naming
+      the differentiable mode.
+    * ``(False, True)``, the default: the differentiable fast forward, the
+      same hit-front accumulation as production (values and counts equal
+      bit for bit) under autograd.
+    * ``(False, False)``: the plain full-width oracle, every lane through
+      every bounce under a mask, associating ``sum_s(light0 + rest_s)``:
+      equal to the others up to float re-association, counts equal.
+
+    ``sample_group`` (an int dividing ``spp``, or ``"auto"``: the JAX rule,
+    the largest divisor of ``spp`` up to ``65536 // (R // 8)``) traces that
+    many samples of the hit-front continuation as one widened batch; per-lane
+    values do not change. ``sample_batch != 1`` raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 11 leaves it out). The
+    Morton-permuted resolve table is attached once here
+    (``with_perm_resolve``).
     """
-    if not (early_exit and compact and sample_batch == 1 and sample_group == 1):
-        raise NotImplementedError(
-            f"early_exit={early_exit}, compact={compact}, "
-            f"sample_batch={sample_batch}, sample_group={sample_group}: "
-            + _NOT_PORTED_MODES
-        )
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
+    # The JAX package's validation: a sample_group that cannot apply is
+    # never silently ignored.
+    if sample_group != 1 and sample_group != "auto":
+        if spp % int(sample_group) != 0:
+            raise ValueError(f"sample_group={sample_group} must divide spp={spp}")
+        if not (early_exit or compact):
+            raise ValueError(
+                "sample_group>1 requires the hit-front accumulator "
+                "(early_exit=True or compact=True); the plain fixed-length "
+                "scan ignores it"
+            )
+        if sample_batch != 1:
+            raise ValueError(
+                "sample_group and sample_batch>1 are mutually exclusive "
+                "(the widened sample_batch path bypasses the hit-front "
+                "accumulator)"
+            )
+    if sample_batch != 1:
+        raise NotImplementedError(
+            f"sample_batch={sample_batch}: not ported (ROADMAP Queue 1 item 11: "
+            f"measured slower than sample_batch=1 in the JAX package)"
+        )
+    if early_exit and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (origins, dirs, *_scene_tensors(scene))):
+        raise ValueError(
+            "trace_accumulate(early_exit=True) is the forward-only production "
+            "mode; for gradients use early_exit=False (with compact=True, the "
+            "differentiable fast forward)"
+        )
     scene = with_perm_resolve(scene)
     r = origins.shape[0]
     if max_bounce < 1:
@@ -152,21 +245,37 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
         origins, dirs, nearest_hit(origins, dirs, scene, backend=backend, alive=act),
         scene,
     )
-    return _hit_front_accumulate(
-        origins, dirs, scene, ray_ids, seed, sample_offset, spp, max_bounce,
-        backend, act, hit0,
-    )
+    if early_exit or compact:
+        if sample_group == "auto":
+            cap = max(65536 // max(r // 8, 1), 1)
+            sample_group = next(g for g in range(min(cap, spp), 0, -1)
+                                if spp % g == 0)
+        return _hit_front_accumulate(
+            origins, dirs, scene, ray_ids, seed, sample_offset, spp, max_bounce,
+            backend, act, hit0, int(sample_group),
+        )
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=origins.device)
+    count = 0
+    for s in range(spp):
+        state = rng.stream_init(seed, ray_ids, sample_offset + s)
+        rad, cnt = _trace_masked(origins, dirs, state, scene, max_bounce, backend,
+                                 act, hit0)
+        acc = acc + rad
+        count += cnt
+    return acc / float(spp), count
 
 
 def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
-                          max_bounce, backend, act, hit0: Hit):
+                          max_bounce, backend, act, hit0: Hit, group: int):
     """Sample accumulation with the primary hits compacted once per chunk.
 
     The bounce-0 radiance (emission on hit lanes, environment light on miss
     lanes, throughput 1) is the same for every sample, so it is computed once
     and weighted by ``spp``. Each sample's continuation (scatter, roulette,
-    bounces 1..N-1) runs on the primary-hit lanes only, and the per-lane
-    result is ``light0 * spp + sum_s(rest_s)``, then divided by ``spp``.
+    bounces 1..N-1) runs on the primary-hit lanes only, ``group`` samples at
+    a time as one batch (lane ``k * width + i`` is sample ``k`` of hit slot
+    ``i``; the slices are added in sample order), and the per-lane result is
+    ``light0 * spp + sum_s(rest_s)``, then divided by ``spp``.
     """
     r = origins.shape[0]
     hitm = hit0.hit & act
@@ -177,6 +286,7 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
     count = int(act.sum()) * spp
 
     sel = _live(hitm)
+    width = sel.numel()
     point, normal, albedo = hit0.point[sel], hit0.normal[sel], hit0.albedo[sel]
     smooth = hit0.smoothness[sel][:, None]
     ids = ray_ids[sel]
@@ -185,11 +295,18 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
     p = albedo.amax(dim=-1)
     thr = albedo / torch.where(p > 0.0, p, 1.0)[:, None]
     spec = _reflect(dirs[sel], normal)
+    if group > 1:
+        widen = lambda x: x.repeat((group,) + (1,) * (x.dim() - 1))
+        point, normal, smooth, thr, p, spec, ids = (
+            widen(x) for x in (point, normal, smooth, thr, p, spec, ids))
 
-    acc = torch.zeros((sel.numel(), 3), dtype=torch.float32, device=origins.device)
-    if sel.numel() and max_bounce > 1:  # else the continuation traces nothing
-        for s in range(spp):
-            state = rng.stream_init(seed, ids, offset + s)
+    acc = torch.zeros((width, 3), dtype=torch.float32, device=origins.device)
+    if width and max_bounce > 1:  # else the continuation traces nothing
+        lane_sample = torch.arange(group, device=origins.device).repeat_interleave(
+            width)
+        for s in range(0, spp, group):
+            sid = offset + s if group == 1 else lane_sample + (offset + s)
+            state = rng.stream_init(seed, ids, sid)
             # Same draw order as a full bounce: 6 for the unit vector, 1 for
             # roulette.
             state, unit = rng.next_unit_vector(state)
@@ -200,9 +317,10 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
                 point, new_dir, state, scene, max_bounce - 1, backend=backend,
                 active=p >= u_rr, throughput0=thr,
             )
-            acc = acc + light_s
+            for k in range(group):  # in sample order: the association of group 1
+                acc = acc + light_s[k * width:(k + 1) * width]
             count += cnt
 
-    contrib = torch.zeros((r, 3), dtype=torch.float32, device=origins.device)
-    contrib[sel] = acc
+    contrib = torch.zeros((r, 3), dtype=torch.float32,
+                          device=origins.device).index_copy(0, sel, acc)
     return (light0 * float(spp) + contrib) / float(spp), count

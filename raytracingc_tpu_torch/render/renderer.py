@@ -2,8 +2,8 @@
 
 Counterpart of ``raytracingc_tpu/render/renderer.py::render``: primary rays
 for every pixel, padded to a multiple of ``pixel_chunk`` with dead rays, and
-traced chunk by chunk through the production integrator so that device
-memory stays bounded at any resolution.
+traced chunk by chunk through the integrator (by default its production
+mode) so that device memory stays bounded at any resolution.
 """
 
 from __future__ import annotations
@@ -27,13 +27,18 @@ def default_pixel_chunk(n_pix: int) -> int:
 
 def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
            max_bounce: int, seed: int = 0, backend: str = "auto",
-           pixel_chunk: int | None = None, sample_offset: int = 0,
-           device=None):
+           pixel_chunk: int | None = None, early_exit: bool = True,
+           sample_offset: int = 0, compact: bool = True, sample_batch=1,
+           sample_group=1, device=None):
     """Render linear radiance: ``(image [H, W, 3] float32, rays_traced)``.
 
     ``device`` defaults to the scene's; the scene and camera are moved there.
     ``rays_traced`` is an exact Python integer. A lane's radiance does not
-    depend on ``pixel_chunk``.
+    depend on ``pixel_chunk``. ``early_exit``, ``compact``, ``sample_batch``
+    and ``sample_group`` select the integrator's mode
+    (:func:`~raytracingc_tpu_torch.render.integrator.trace_accumulate`):
+    the default is the forward-only production mode; pass
+    ``early_exit=False`` when differentiating.
     """
     device = torch.device(device) if device is not None else scene.device
     scene, camera = scene.to(device), camera.to(device)
@@ -64,6 +69,8 @@ def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
             origins[lo:hi], dirs[lo:hi], scene, ray_ids[lo:hi], seed=seed,
             spp=spp, max_bounce=max_bounce, backend=backend,
             sample_offset=sample_offset, active=active[lo:hi],
+            early_exit=early_exit, sample_batch=sample_batch, compact=compact,
+            sample_group=sample_group,
         )
         radiance.append(rad)
         count += cnt

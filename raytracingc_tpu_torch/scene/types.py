@@ -219,3 +219,35 @@ class Scene:
                                   resolve_perm=None,
                                   n_triangles=triangles.count)
         return out.with_accel() if rebuild_accel else out
+
+
+# The scene's float leaves, named by their paths in the JAX package's Scene
+# pytree (``jax.tree_util.keystr``): ".triangles.a" ... ".env.sun_intensity".
+_LEAF_GROUPS = (("triangles", Triangles), ("spheres", Spheres), ("env", EnvParams))
+LEAF_PATHS = tuple(f".{group}.{f.name}" for group, cls in _LEAF_GROUPS
+                   for f in dataclasses.fields(cls))
+
+
+def scene_leaves(scene: Scene) -> dict[str, torch.Tensor]:
+    """The scene's parameter tensors by :data:`LEAF_PATHS` name, in the JAX
+    package's flattening order (the accel and the resolve table, derived
+    data, are not leaves)."""
+    return {f".{group}.{f.name}": getattr(getattr(scene, group), f.name)
+            for group, cls in _LEAF_GROUPS for f in dataclasses.fields(cls)}
+
+
+def with_leaves(scene: Scene, leaves: dict[str, torch.Tensor]) -> Scene:
+    """A copy of ``scene`` with the named leaves replaced (any subset of
+    :data:`LEAF_PATHS`); the accel stays attached and the resolve table is
+    dropped (``with_perm_resolve`` rebuilds it from the new triangles)."""
+    unknown = set(leaves) - set(LEAF_PATHS)
+    if unknown:
+        raise KeyError(f"not scene leaves: {sorted(unknown)}")
+    groups = {}
+    for group, _ in _LEAF_GROUPS:
+        new = {name.rsplit(".", 1)[1]: t for name, t in leaves.items()
+               if name.startswith(f".{group}.")}
+        if new:
+            groups[group] = dataclasses.replace(getattr(scene, group), **new)
+    return dataclasses.replace(scene, resolve_perm=None, **groups)
+

@@ -109,7 +109,7 @@ def main(argv: list[str] | None = None) -> int:
 
     def run():
         return trace_accumulate(o, d, scene, ids, seed=args.seed, spp=args.spp,
-                                max_bounce=args.max_bounce)
+                                max_bounce=args.max_bounce, early_exit=True)
 
     run()
     torch.cuda.synchronize()

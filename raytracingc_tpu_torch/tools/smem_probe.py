@@ -21,6 +21,7 @@ of an H100.
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 
 import torch
@@ -44,6 +45,22 @@ def smem_probe_reference(sm, x):
     return x + s.to(torch.float32).repeat_interleave(TILE_ROWS)[:, None]
 
 
+# The kernel's staging split (csrc/smem_probe.cu staging_body): the bulk
+# copies stop at least TAIL_MIN words short of n, whose first 8 bytes hold
+# the copies' mbarrier.
+TAIL_MIN = 2
+CLUSTER = 8  # CTAs of one cluster in the multicast variant
+
+
+def staging_split(n: int) -> tuple[int, int]:
+    """``(body, tail)`` in words: the kernel stages ``[0, body)`` by bulk
+    copies (a multiple of 4 words, 16 bytes) and ``[body, n)`` by plain
+    loads, ``tail`` of them (TAIL_MIN to TAIL_MIN + 3, or all of a table
+    of fewer than 6 words, which has no bulk copy)."""
+    body = (n - TAIL_MIN) // 4 * 4 if n >= 4 + TAIL_MIN else 0
+    return body, n - body
+
+
 def _check_args(sm, x):
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != TILE_COLS \
             or x.shape[0] % TILE_ROWS or x.shape[0] == 0:
@@ -59,56 +76,76 @@ def _check_args(sm, x):
             raise ValueError(f"{name}: expected a contiguous tensor on x's device")
 
 
-def smem_probe(sm, x):
+_limit_set: set[int] = set()  # CUDA devices whose kernels' limit is raised
+
+
+def smem_probe(sm, x, *, multicast: bool = False, launches: int = 1,
+               set_limit: bool = False):
     """``o = x + f32(...)`` with the table staged in shared memory.
 
     A CPU tensor runs :func:`smem_probe_reference`. A CUDA tensor launches
     ``csrc/smem_probe.cu`` with ``4 n`` bytes of dynamic shared memory and
     counts the launch in ``smem_probe.launches``; a refused launch raises
     ``_build.CudaError`` (code 1, cudaErrorInvalidValue, past the device's
-    limit); any other device raises.
+    limit); any other device raises. The kernels' limit is raised to
+    :func:`optin_bytes` on a device's first launch. For measurements:
+    ``multicast`` launches the clustered variant (8 CTAs a cluster, the
+    table multicast), ``launches`` repeats the launch back to back into the
+    same output from one C call, ``set_limit`` raises the limit again before
+    the launch, as every call did before it was cached.
     """
     _check_args(sm, x)
     if x.device.type == "cpu":
         return smem_probe_reference(sm, x)
     if x.device.type != "cuda":
         raise RuntimeError(f"smem_probe: no kernel for device {x.device}")
-
-    import ctypes
+    if sm.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("sm, x: the kernel needs 16-byte aligned tensors")
+    tiles = x.shape[0] // TILE_ROWS
+    if multicast and tiles % CLUSTER:
+        raise ValueError(f"multicast: {tiles} tiles, not a multiple of {CLUSTER}")
 
     from raytracingc_tpu_torch.ops import _build
 
     lib = _build.load_library()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.rtc_smem_probe(sm.data_ptr(), x.data_ptr(),
-                                  ctypes.c_int(sm.shape[0]),
-                                  ctypes.c_int(x.shape[0] // TILE_ROWS),
-                                  out.data_ptr(), stream)
+    index = x.device.index
+    with torch.cuda.device(index):
+        if set_limit or index not in _limit_set:
+            _build.check(lib.rtc_smem_set_limit(optin_bytes(x.device)),
+                         "cudaFuncSetAttribute")
+            _limit_set.add(index)
+        code = lib.rtc_smem_probe(sm.data_ptr(), x.data_ptr(), sm.shape[0], tiles,
+                                  out.data_ptr(), int(multicast), launches,
+                                  torch.cuda.current_stream().cuda_stream)
     _build.check(code, "smem_probe launch")
-    smem_probe.launches += 1
+    smem_probe.launches += launches
     return out
 
 
 smem_probe.launches = 0
 
 
-def optin_bytes(device) -> int:
-    """The device's opt-in maximum of shared memory per block, in bytes
-    (the H100's on the CPU, which has none)."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return H100_OPTIN_BYTES
+@functools.cache
+def _optin(index: int) -> int:
     import ctypes
 
     from raytracingc_tpu_torch.ops import _build
 
     out = ctypes.c_int(0)
-    index = device.index if device.index is not None else torch.cuda.current_device()
     _build.check(_build.load_library().rtc_smem_optin(index, ctypes.byref(out)),
                  "cudaDeviceGetAttribute")
     return out.value
+
+
+def optin_bytes(device) -> int:
+    """The device's opt-in maximum of shared memory per block, in bytes
+    (the H100's on the CPU, which has none); read once per device."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return H100_OPTIN_BYTES
+    return _optin(device.index if device.index is not None
+                  else torch.cuda.current_device())
 
 
 def ladder(limit_bytes: int) -> list[int]:
@@ -118,7 +155,7 @@ def ladder(limit_bytes: int) -> list[int]:
     return sorted({12288, 16384, 32768, 49152, 57344, words, words + 1, 65536})
 
 
-def run_ladder(device, sizes):
+def run_ladder(device, sizes, multicast: bool = False):
     """Probe each size in order; ``[(n, equal to the plain version, the
     refusal or None)]``, stopping after the first refusal."""
     from raytracingc_tpu_torch.ops._build import CudaError
@@ -128,7 +165,7 @@ def run_ladder(device, sizes):
     for n in sizes:
         sm = torch.arange(n, dtype=torch.int32, device=device)
         try:
-            got = smem_probe(sm, x)
+            got = smem_probe(sm, x, multicast=multicast)
         except CudaError as e:
             out.append((n, False, e))
             break

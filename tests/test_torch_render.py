@@ -132,10 +132,14 @@ def test_render_modes_and_arguments(scenes):
     d = torch.zeros((8, 3))
     d[:, 2] = 1.0
     ids = torch.arange(8)
+    # The other modes run (tests/test_torch_integrator_modes.py holds their
+    # values); sample_batch stays out of the port (ROADMAP item 11).
     for kw in (dict(early_exit=False), dict(compact=False),
-               dict(sample_batch=2), dict(sample_group=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-            trace_accumulate(o, d, ts, ids, seed=0, spp=2, max_bounce=2, **kw)
+               dict(early_exit=False, compact=False), dict(sample_group=2)):
+        img, n = trace_accumulate(o, d, ts, ids, seed=0, spp=2, max_bounce=2, **kw)
+        assert img.shape == (8, 3) and n >= 16, kw
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        trace_accumulate(o, d, ts, ids, seed=0, spp=2, max_bounce=2, sample_batch=2)
     with pytest.raises(ValueError):
         trace_accumulate(o, d, ts, ids, seed=0, spp=0, max_bounce=2)
     img, n = render(ts, tc, 8, 8, 2, 0)

@@ -22,6 +22,7 @@ import importlib.util
 import io
 import os
 import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,6 +126,49 @@ def test_smem_probe_matches_jax(n, monkeypatch):
     want = np.asarray(tool.probe(jnp.asarray(sm), jnp.asarray(x), n))
     got = smem_probe.smem_probe(torch.from_numpy(sm), torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+STAGING_SIZES = sorted(set(smem_probe.ladder(smem_probe.H100_OPTIN_BYTES))
+                       | {1, 2, 5, 6, 7, 8, 9, 10, 11, 1001, 58109, 58110, 58111})
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("n", STAGING_SIZES)
+def test_smem_staging_split_covers_the_table(n):
+    """K10's staging (csrc/smem_probe.cu): the bulk-copy body and the tail of
+    plain loads cover [0, n) exactly, the body in 16-byte units within the
+    mbarrier's tx-count, the tail with room for the 8-byte mbarrier; the
+    one-CTA kernel's 32 KiB copies and the multicast ranks' eighths each
+    cover the body once."""
+    body, tail = smem_probe.staging_split(n)
+    assert body + tail == n and body >= 0 and body % 4 == 0
+    assert body * 4 < 2**20  # mbarrier tx-count range
+    if body:
+        assert smem_probe.TAIL_MIN <= tail <= smem_probe.TAIL_MIN + 3
+        assert (body * 4) % 8 == 0  # the mbarrier's slot is 8-byte aligned
+    else:
+        assert n < 4 + smem_probe.TAIL_MIN and tail == n
+    covered = np.zeros(n, np.int32)
+    for off in range(0, body * 4, 32768):
+        covered[off // 4:min(off + 32768, body * 4) // 4] += 1
+    covered[body:] += 1
+    assert (covered == 1).all()
+    units = body // 4
+    per = -(-units // smem_probe.CLUSTER)
+    ranks = np.zeros(units, np.int32)
+    for k in range(smem_probe.CLUSTER):
+        ranks[k * per:min(k * per + per, units)] += 1
+    assert (ranks == 1).all()
+
+
+def test_smem_staging_constants_match_the_source():
+    src = (REPO / "raytracingc_tpu_torch" / "csrc" / "smem_probe.cu").read_text()
+    assert f"constexpr int kTailMin = {smem_probe.TAIL_MIN};" in src
+    assert f"constexpr int kCluster = {smem_probe.CLUSTER};" in src
+    assert "constexpr uint32_t kChunkBytes = 32768;" in src
+    assert "return n >= 4 + kTailMin ? (n - kTailMin) / 4 * 4 : 0;" in src
 
 
 def test_wrappers_validate():
