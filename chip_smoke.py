@@ -311,14 +311,17 @@ TRAIN_GEOMETRY = ["triangles.normal", "triangles.b", "triangles.c"]
 GRAD_RUN = dict(width=32, height=32, spp=2, max_bounce=4)
 GRAD_REL = 1e-3
 # The FD check on the card: tests/test_diff.py's settings and bar (>= 0.9)
-# on box_scene --tessellate 4 with its albedo ties broken from FD_SEED, at
-# 16x16 (tests/test_diff.py's 8x8 sees too few pixels of this scene: on the
+# on box_scene --tessellate 4 with its albedo ties broken from FD_SEED, but
+# with a step of 1e-2: at 1e-3 the loss moves by about one float32 ulp along
+# .env.sun_focus, so its FD is quantised (the CPU port read 7.4506e-5, two
+# ulps over the step, against a gradient of 6.950e-5; the card read 0 of 8
+# probes in its first run), where 1e-2 reads 6.929e-5. At 16x16 (tests/test_diff.py's 8x8 sees too few pixels of this scene: on the
 # CPU port its rate read 0.83-0.92 over three untying seeds, the misses on
 # leaves whose gradient is near the FD noise, e.g. .env.sun_focus), with 8
 # probes a leaf (CPU port: 0.97-0.98 over the same seeds, every miss on
 # .triangles.emission, whose FD is float32 noise beside the emitter's bright
 # pixels).
-FD_RUN = dict(width=16, height=16, spp=2, max_bounce=2, eps=1e-3, rtol=2e-2,
+FD_RUN = dict(width=16, height=16, spp=2, max_bounce=2, eps=1e-2, rtol=2e-2,
               atol=5e-6, probes_per_leaf=8)
 FD_SEED = 20261017
 FD_BAR = 0.9
@@ -981,40 +984,48 @@ def l2_read_rate(dev) -> float:
     return a.numel() * 4 / (cuda_ms(lambda: a.sum(), 50) * 1e-3)
 
 
-def smem_device_ms(sm, x, multicast: bool) -> float:
-    """Device milliseconds per K10 launch from torch.profiler: the mean of
-    the probe kernel's device durations over 20 launches."""
+def smem_times(probe) -> dict:
+    """K10's times at one launch, ``probe()`` calling its wrapper once:
+    ``ms`` the call by CUDA events over 50 calls (host included: the kernel
+    line's time), ``host`` the host's milliseconds per call (200 calls on a
+    clock with no sync between them; the device, ~2 us a launch, keeps up),
+    ``profiler`` the kernel's device duration per launch from
+    torch.profiler over 20 calls."""
     import torch
 
-    from raytracingc_tpu_torch.tools import smem_probe as sp
+    from raytracingc_tpu_torch.tools import cuda_ms
 
-    sp.smem_probe(sm, x, multicast=multicast)
+    out = {"ms": cuda_ms(probe, 50)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        probe()
+    out["host"] = (time.perf_counter() - t) / 200 * 1e3
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(20):
-            sp.smem_probe(sm, x, multicast=multicast)
+            probe()
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "device_time_total", 0) or getattr(
         e, "cuda_time_total", 0)
     durs = [dev_us(e) / max(e.count, 1) for e in prof.key_averages()
             if "smem_probe" in e.key and dev_us(e) > 0]
-    return durs[0] / 1e3 if durs else float("nan")
+    out["profiler"] = durs[0] / 1e3 if durs else float("nan")
+    return out
 
 
 def check_smem_probe(dev):
     """Phase 3e: every ladder size up to the device's opt-in limit runs and
     equals the plain version bit for bit; the first size past it is refused
-    by the launch with cudaErrorInvalidValue; in both variants (one CTA a
-    tile; 8-CTA clusters with the table multicast). Returns ``(limit bytes,
+    by the launch with cudaErrorInvalidValue; odd sizes (every body/tail
+    split of the staging) equal the plain version. Returns ``(limit bytes,
     {timing: ms} at the limit, (operations, bytes) the function needs, the
-    staging floor's bytes, the ladder's [(n, equal, refusal)])``. Timings:
-    ``ms`` the wrapper's call by CUDA events (host included, as the kernel
-    line's time), ``set every call`` the same with the limit raised again
-    before each launch (the parent's host work), ``device`` 100 launches
-    from one C call between two events, per launch, ``profiler`` the kernel's
-    device duration, each also for the multicast variant; ``plain`` the
-    plain version."""
+    bytes the CTAs stage, the ladder's [(n, equal, refusal)])``. Timings:
+    :func:`smem_times`; ``set every call`` the events' time with the limit
+    raised again before each launch (the parent's host work); ``device``
+    100 launches from one C call between two events, per launch; ``plain``
+    the plain version."""
     import torch
 
     from raytracingc_tpu_torch.tools import cuda_ms
@@ -1024,30 +1035,20 @@ def check_smem_probe(dev):
     sizes = sp.ladder(limit)
     fits = [n for n in sizes if n * 4 <= limit]
     want = fits + [next(n for n in sizes if n * 4 > limit)]
-    for multicast in (False, True):
-        results = sp.run_ladder(dev, sizes, multicast=multicast)
-        if [n for n, _, _ in results] != want:
-            raise AssertionError(f"smem_probe multicast={multicast} ran "
-                                 f"{[n for n, _, _ in results]}, expected {want}")
-        for n, equal, err in results:
-            if n * 4 <= limit and (err is not None or not equal):
-                raise AssertionError(f"smem_probe multicast={multicast} n={n}: "
-                                     f"{err or 'differs from plain'}")
-            if n * 4 > limit and (err is None
-                                  or err.code != sp.CUDA_ERROR_INVALID_VALUE):
-                raise AssertionError(f"smem_probe multicast={multicast} n={n} past "
-                                     f"the limit: {err!r}")
-        if not multicast:
-            ladder = results
-    # Odd sizes and the smallest tables: every body/tail split.
+    ladder = sp.run_ladder(dev, sizes)
+    if [n for n, _, _ in ladder] != want:
+        raise AssertionError(f"smem_probe ran {[n for n, _, _ in ladder]}, "
+                             f"expected {want}")
+    for n, equal, err in ladder:
+        if n * 4 <= limit and (err is not None or not equal):
+            raise AssertionError(f"smem_probe n={n}: {err or 'differs from plain'}")
+        if n * 4 > limit and (err is None or err.code != sp.CUDA_ERROR_INVALID_VALUE):
+            raise AssertionError(f"smem_probe n={n} past the limit: {err!r}")
     x = torch.ones(sp.X_SHAPE, dtype=torch.float32, device=dev)
     for n in (8, 9, 10, 11, 1001, limit // 4 - 1, limit // 4 - 2, limit // 4 - 3):
         sm = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=dev)
-        for multicast in (False, True):
-            if not torch.equal(sp.smem_probe(sm, x, multicast=multicast),
-                               sp.smem_probe_reference(sm, x)):
-                raise AssertionError(f"smem_probe multicast={multicast} n={n}: "
-                                     f"differs from plain")
+        if not torch.equal(sp.smem_probe(sm, x), sp.smem_probe_reference(sm, x)):
+            raise AssertionError(f"smem_probe n={n}: differs from plain")
     n = limit // 4
     sm = torch.arange(n, dtype=torch.int32, device=dev)
     out = sp.smem_probe(sm, x)
@@ -1055,16 +1056,11 @@ def check_smem_probe(dev):
     # per element of x: one add.
     tiles = x.shape[0] // sp.TILE_ROWS
     work = (x.numel() + 3 * tiles, n_bytes(x, out) + 3 * 4 * tiles)
-    ms = {}
-    for tag, mc in (("", False), (" multicast", True)):
-        ms["ms" + tag] = cuda_ms(lambda: sp.smem_probe(sm, x, multicast=mc), 50)
-        ms["set every call" + tag] = cuda_ms(
-            lambda: sp.smem_probe(sm, x, multicast=mc, set_limit=True), 50)
-        ms["device" + tag] = cuda_ms(
-            lambda: sp.smem_probe(sm, x, multicast=mc, launches=100), 5) / 100
-        ms["profiler" + tag] = smem_device_ms(sm, x, mc)
+    ms = smem_times(lambda: sp.smem_probe(sm, x))
+    ms["set every call"] = cuda_ms(lambda: sp.smem_probe(sm, x, set_limit=True), 50)
+    ms["device"] = cuda_ms(lambda: sp.smem_probe(sm, x, launches=100), 5) / 100
     ms["plain"] = cuda_ms(lambda: sp.smem_probe_reference(sm, x), 50)
-    return limit, ms, work, n * 4 * tiles, ladder
+    return limit, ms, work, 4 * sp.staging_split(n)[0] * tiles, ladder
 
 
 def check_modes(dev, run=MODES_RUN) -> dict:
@@ -1193,22 +1189,23 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
     leaves[".triangles.albedo"] = leaves[".triangles.albedo"] * 0.5
     dim = with_leaves(scene, leaves)
 
-    # One step timed apart: the forward under autograd (its values are
-    # production's bits), then the backward.
+    # One step timed apart, after one untimed: the forward under autograd
+    # (its values are production's bits), then the backward.
     o, d = primary_rays(cam, run["width"], run["height"])
     ids = torch.arange(run["width"] * run["height"], device=dev)
     params = {k: t.detach().clone().requires_grad_(k == ".triangles.albedo")
               for k, t in scene_leaves(dim).items()}
-    sync()
-    t = time.time()
-    rad, _ = trace_accumulate(o, d, with_leaves(dim, params), ids, seed=0, **shape)
-    loss = ((rad - target.reshape(-1, 3)) ** 2).mean()
-    sync()
-    t_fwd = time.time() - t
-    t = time.time()
-    loss.backward()
-    sync()
-    t_bwd = time.time() - t
+    for _ in range(2):
+        sync()
+        t = time.time()
+        rad, _ = trace_accumulate(o, d, with_leaves(dim, params), ids, seed=0, **shape)
+        loss = ((rad - target.reshape(-1, 3)) ** 2).mean()
+        sync()
+        t_fwd = time.time() - t
+        t = time.time()
+        loss.backward()
+        sync()
+        t_bwd = time.time() - t
     with torch.no_grad():
         prod, _ = trace_accumulate(o, d, dim, ids, seed=0, early_exit=True, **shape)
     if not torch.equal(rad.detach().view(torch.int32), prod.view(torch.int32)):
@@ -1221,11 +1218,11 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
                                          learning_rate=5e-2, trainable=["albedo"],
                                          **shape)),
             ("geometry", lambda: fit_scene(scene, target * 0.9, cam, steps=steps,
-                                           learning_rate=1e-2,
+                                           learning_rate=1e-3,
                                            trainable=TRAIN_GEOMETRY, **shape)),
             ("camera", lambda: fit_camera(scene, target, dataclasses.replace(
                 cam, origin=cam.origin + torch.tensor([0.12, -0.08, 0.1], device=dev)),
-                steps=steps, learning_rate=1e-2, **shape))):
+                steps=steps, learning_rate=1e-3, **shape))):
         sync()
         k2 = search_bitmask.launches
         t = time.time()
@@ -1385,20 +1382,18 @@ def main() -> int:
         f"{union_bound[label][0] / ms['search_union']:.1%} of bound"
         for label, ms in union_times.items()))
 
-    # 3e. The shared-memory probe's ladder, in both variants, and its times.
+    # 3e. The shared-memory probe's ladder, and its times.
     t = time.time()
     smem_limit, smem_ms, smem_work, smem_staged, ladder = check_smem_probe(dev)
     l2 = l2_read_rate(dev)
-    smem_floor = {"one CTA a tile": smem_staged / l2 * 1e3,
-                  "multicast": smem_staged / smem_probe.CLUSTER / l2 * 1e3}
     phase("kernel", t, f"smem_probe: opt-in limit {smem_limit} bytes "
           f"({smem_limit // 4} words); " + ", ".join(
               f"{n}: {'refused (' + str(err.code) + ')' if err else 'OK, == plain'}"
-              for n, _, err in ladder) + "; the same with multicast; odd sizes == "
-          f"plain; at the limit: " + ", ".join(
-              f"{k} {v:.5f} ms" for k, v in smem_ms.items())
-          + f"; L2 read rate (torch.sum, 24 MiB) {l2 / 1e12:.3f} TB/s, staging "
-          f"floor " + ", ".join(f"{k} {v:.5f} ms" for k, v in smem_floor.items()))
+              for n, _, err in ladder) + "; odd sizes == plain; at the limit: "
+          + ", ".join(f"{k} {v:.5f} ms" for k, v in smem_ms.items())
+          + f"; staging floor {smem_staged} bytes at the L2 read rate of one "
+          f"torch.sum over 24 MiB ({l2 / 1e12:.3f} TB/s, an achieved rate, not "
+          f"a peak): {smem_staged / l2 * 1e3:.5f} ms")
 
     # 4. Main path: the CLI in default mode and under the knobs that pick a
     # kernel, then the two tools, on the card. Every kernel's count is set

@@ -6,12 +6,12 @@
 // CTA, one per 8 x 128 tile of x, computes the TPU kernel's function
 //   o = x + f32(sm[pid] + sm[n - 1 - pid] + sm[n / 2])
 // reading scattered entries so that the table cannot be elided. The launch
-// asks for n * 4 bytes of dynamic shared memory; the kernels' limit is
+// asks for n * 4 bytes of dynamic shared memory; the kernel's limit is
 // raised once per device (rtc_smem_set_limit) to the device's opt-in maximum
 // per block (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 bytes on an
 // H100), so a table up to that size runs and the first larger one is refused
 // by the launch (cudaErrorInvalidValue): the refusal is the measurement.
-// Neither kernel has static shared memory, so the whole opt-in maximum is
+// The kernel has no static shared memory, so the whole opt-in maximum is
 // the table's.
 //
 // What bounds it: staging the table, n * 4 bytes per CTA from L2 (8 CTAs
@@ -26,24 +26,20 @@
 //   flight and writes them over the invalidated mbarrier afterwards.
 // - While the copy is in flight every thread loads its 4 elements of x as
 //   one float4; it stores its 4 outputs as one float4.
-// - smem_probe_multicast_kernel (the A/B): 8 CTAs form one cluster, each
-//   copies one eighth of the body with .multicast::cluster into all 8 CTAs'
-//   shared memory, so L2 serves the table once per cluster.
-// staging_body() is the split, modelled by tools/smem_probe.py::staging_split.
+// An A/B variant that made 8 CTAs one cluster and multicast each eighth of
+// the body into all 8 (L2 read once per cluster) was slower, 3.6 against
+// 2.3 us a launch (PERF.md), and is gone. staging_body() is the split,
+// modelled by tools/smem_probe.py::staging_split.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 8 * 128;
-constexpr int kCluster = 8;
 constexpr int kTailMin = 2;          // words left to plain loads: the mbarrier's 8 bytes
-constexpr uint32_t kChunkBytes = 32768;  // bytes per bulk copy of the one-CTA kernel
+constexpr uint32_t kChunkBytes = 32768;  // bytes per bulk copy
 
 // Words of the table staged by the bulk copies: a multiple of 4 (16 bytes),
 // at most n - kTailMin; 0 for n < 6 (no bulk copy, no mbarrier).
@@ -88,24 +84,10 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src,
-                                                    uint32_t bytes, uint32_t bar,
-                                                    uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask) : "memory");
-}
-
-// The probe's body around the staging: `issue(table, bar, body)` starts the
-// bulk copies of the body (thread 0 only; the barrier is armed), `sync()`
-// is the barrier that makes every CTA's mbarrier ready before any copy can
-// land in it.
-template <class Issue, class Sync>
-__device__ __forceinline__ void probe_tile(const int32_t* __restrict__ sm,
-                                           const float* __restrict__ x, int n,
-                                           float* __restrict__ out,
-                                           Issue issue, Sync sync) {
+__global__ void __launch_bounds__(kThreads)
+smem_probe_kernel(const int32_t* __restrict__ sm,  // [n], 16-byte aligned
+                  const float* __restrict__ x,     // [n_tiles * 8, 128]
+                  int n, float* __restrict__ out) {
   extern __shared__ __align__(16) int32_t table[];
   const int t = threadIdx.x;
   const int body = staging_body(n);
@@ -113,10 +95,14 @@ __device__ __forceinline__ void probe_tile(const int32_t* __restrict__ sm,
   const uint32_t bar = smem_addr(table + body);
   if (t == 0 && body > 0) {
     mbar_init(bar);
-    mbar_expect_tx(bar, static_cast<uint32_t>(body) * 4u);
+    const uint32_t bytes = static_cast<uint32_t>(body) * 4u;
+    mbar_expect_tx(bar, bytes);
+    const char* src = reinterpret_cast<const char*>(sm);
+    for (uint32_t off = 0; off < bytes; off += kChunkBytes) {
+      const uint32_t len = bytes - off < kChunkBytes ? bytes - off : kChunkBytes;
+      bulk_copy(smem_addr(table) + off, src + off, len, bar);
+    }
   }
-  sync();
-  if (t == 0 && body > 0) issue(table, bar, body);
   int32_t tail_v[kTailMin + 4];
   if (t == 0) {
 #pragma unroll
@@ -124,6 +110,7 @@ __device__ __forceinline__ void probe_tile(const int32_t* __restrict__ sm,
   }
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
   const float4 xv = reinterpret_cast<const float4*>(x + base)[t];
+  __syncthreads();  // the mbarrier is initialised before anyone waits on it
   if (body > 0) mbar_wait(bar, 0);
   __syncthreads();  // every thread is past the mbarrier
   if (t == 0) {
@@ -144,51 +131,6 @@ __device__ __forceinline__ void probe_tile(const int32_t* __restrict__ sm,
       make_float4(xv.x + sf, xv.y + sf, xv.z + sf, xv.w + sf);
 }
 
-__global__ void __launch_bounds__(kThreads)
-smem_probe_kernel(const int32_t* __restrict__ sm,  // [n], 16-byte aligned
-                  const float* __restrict__ x,     // [n_tiles * 8, 128]
-                  int n, float* __restrict__ out) {
-  probe_tile(
-      sm, x, n, out,
-      [&](int32_t* table, uint32_t bar, int body) {
-        const char* src = reinterpret_cast<const char*>(sm);
-        const uint32_t dst = smem_addr(table);
-        const uint32_t bytes = static_cast<uint32_t>(body) * 4u;
-        for (uint32_t off = 0; off < bytes; off += kChunkBytes) {
-          const uint32_t len = bytes - off < kChunkBytes ? bytes - off : kChunkBytes;
-          bulk_copy(dst + off, src + off, len, bar);
-        }
-      },
-      [] { __syncthreads(); });
-}
-
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-smem_probe_multicast_kernel(const int32_t* __restrict__ sm,
-                            const float* __restrict__ x, int n,
-                            float* __restrict__ out) {
-  cg::cluster_group cluster = cg::this_cluster();
-  probe_tile(
-      sm, x, n, out,
-      [&](int32_t* table, uint32_t bar, int body) {
-        // Rank k copies the k-th eighth of the body (16-byte units) into the
-        // same offset of every CTA of the cluster.
-        const int units = body / 4;
-        const int per = (units + kCluster - 1) / kCluster;
-        const int k = static_cast<int>(cluster.block_rank());
-        const int lo = k * per;
-        const int hi = lo + per < units ? lo + per : units;
-        if (lo < hi) {
-          bulk_copy_multicast(smem_addr(table) + lo * 16u,
-                              reinterpret_cast<const char*>(sm) + lo * 16,
-                              static_cast<uint32_t>(hi - lo) * 16u, bar,
-                              static_cast<uint16_t>((1u << kCluster) - 1u));
-        }
-      },
-      [&] { cluster.sync(); });
-  // No CTA leaves while a copy it issued may still be landing in another.
-  cluster.sync();
-}
-
 }  // namespace
 
 extern "C" {
@@ -201,36 +143,26 @@ int rtc_smem_optin(int device, void* bytes) {
       device));
 }
 
-// Raises both kernels' dynamic shared-memory limit on the current device to
+// Raises the kernel's dynamic shared-memory limit on the current device to
 // `bytes` (the opt-in maximum); the wrapper calls it once per device and
 // process. Returns the cudaError_t as an int.
 int rtc_smem_set_limit(int bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      smem_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(smem_probe_multicast_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(
+      smem_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 // Launches the probe `launches` times back to back on `stream` (n_tiles
-// CTAs, n * 4 bytes of dynamic shared memory each; clusters of 8 when
-// `multicast`, which needs n_tiles % 8 == 0) and returns the first
+// CTAs, n * 4 bytes of dynamic shared memory each) and returns the first
 // cudaGetLastError() that is not 0, else 0.
 int rtc_smem_probe(const void* sm, const void* x, int n, int n_tiles,
-                   void* out, int multicast, int launches, void* stream) {
+                   void* out, int launches, void* stream) {
   const size_t bytes = static_cast<size_t>(n) * sizeof(int32_t);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* table = static_cast<const int32_t*>(sm);
   const float* xf = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
   for (int i = 0; i < launches; ++i) {
-    if (multicast) {
-      smem_probe_multicast_kernel<<<n_tiles, kThreads, bytes, s>>>(table, xf, n, o);
-    } else {
-      smem_probe_kernel<<<n_tiles, kThreads, bytes, s>>>(table, xf, n, o);
-    }
+    smem_probe_kernel<<<n_tiles, kThreads, bytes, s>>>(table, xf, n, o);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

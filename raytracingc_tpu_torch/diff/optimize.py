@@ -199,8 +199,8 @@ def fit_scene(
             print(f"[fit_scene] step {i}: loss {losses[-1]:.6g}")
     _check_finite(losses, "fit_scene")
     fitted = with_leaves(scene, {k: t.detach() for k, t in params.items()})
-    if scene.accel is not None:
-        # The accel holds its own copy of the geometry: rebuild it when the
-        # vertices may have moved.
-        fitted = fitted.with_accel() if geometry_trained else fitted
+    if scene.accel is not None and geometry_trained:
+        # The accel holds its own copy of the geometry: rebuild it for the
+        # moved vertices.
+        fitted = fitted.with_accel()
     return fitted, losses

@@ -56,8 +56,7 @@ _SIGNATURES = {
     "rtc_mxu_items": ([_VOID_P] * 2 + [_INT] * 3 + [_VOID_P] * 4, _INT),
     "rtc_search_mxu": ([_VOID_P] * 7 + [_INT] * 4 + [_VOID_P] * 4, _INT),
     "rtc_search_mxu_grid": ([_INT] + [_VOID_P] * 2, _INT),
-    "rtc_smem_probe": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] + [_INT] * 2
-                       + [_VOID_P], _INT),
+    "rtc_smem_probe": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P, _INT, _VOID_P], _INT),
     "rtc_smem_set_limit": ([_INT], _INT),
     "rtc_smem_optin": ([_INT, _VOID_P], _INT),
     "rtc_error_string": ([_INT], ctypes.c_char_p),

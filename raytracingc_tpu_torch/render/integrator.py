@@ -26,8 +26,6 @@ package sums them in float32).
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from raytracingc_tpu_torch import rng
@@ -38,7 +36,7 @@ from raytracingc_tpu_torch.ops.intersect import (
     resolve_hit,
     with_perm_resolve,
 )
-from raytracingc_tpu_torch.scene.types import Scene
+from raytracingc_tpu_torch.scene.types import Scene, scene_leaves
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -166,14 +164,6 @@ def _trace_masked(origins, dirs, rng_state, scene: Scene, max_bounce: int,
     return light, count
 
 
-def _scene_tensors(scene: Scene):
-    yield from (getattr(group, f.name) for group in (scene.triangles, scene.spheres,
-                                                     scene.env)
-                for f in dataclasses.fields(group))
-    if scene.resolve_perm is not None:
-        yield scene.resolve_perm
-
-
 def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
                      max_bounce: int, backend: str = "auto",
                      sample_offset: int = 0, active=None,
@@ -228,7 +218,7 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
             f"measured slower than sample_batch=1 in the JAX package)"
         )
     if early_exit and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (origins, dirs, *_scene_tensors(scene))):
+            t.requires_grad for t in (origins, dirs, *scene_leaves(scene).values())):
         raise ValueError(
             "trace_accumulate(early_exit=True) is the forward-only production "
             "mode; for gradients use early_exit=False (with compact=True, the "

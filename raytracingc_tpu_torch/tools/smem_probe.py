@@ -21,6 +21,7 @@ of an H100.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import sys
 
@@ -49,7 +50,6 @@ def smem_probe_reference(sm, x):
 # copies stop at least TAIL_MIN words short of n, whose first 8 bytes hold
 # the copies' mbarrier.
 TAIL_MIN = 2
-CLUSTER = 8  # CTAs of one cluster in the multicast variant
 
 
 def staging_split(n: int) -> tuple[int, int]:
@@ -76,48 +76,45 @@ def _check_args(sm, x):
             raise ValueError(f"{name}: expected a contiguous tensor on x's device")
 
 
-_limit_set: set[int] = set()  # CUDA devices whose kernels' limit is raised
+_limit_set: set[int] = set()  # CUDA devices whose kernel's limit is raised
 
 
-def smem_probe(sm, x, *, multicast: bool = False, launches: int = 1,
-               set_limit: bool = False):
+def smem_probe(sm, x, *, launches: int = 1, set_limit: bool = False):
     """``o = x + f32(...)`` with the table staged in shared memory.
 
     A CPU tensor runs :func:`smem_probe_reference`. A CUDA tensor launches
     ``csrc/smem_probe.cu`` with ``4 n`` bytes of dynamic shared memory and
     counts the launch in ``smem_probe.launches``; a refused launch raises
     ``_build.CudaError`` (code 1, cudaErrorInvalidValue, past the device's
-    limit); any other device raises. The kernels' limit is raised to
+    limit); any other device raises. The kernel's limit is raised to
     :func:`optin_bytes` on a device's first launch. For measurements:
-    ``multicast`` launches the clustered variant (8 CTAs a cluster, the
-    table multicast), ``launches`` repeats the launch back to back into the
-    same output from one C call, ``set_limit`` raises the limit again before
-    the launch, as every call did before it was cached.
+    ``launches`` repeats the launch back to back into the same output from
+    one C call, ``set_limit`` raises the limit again before the launch, as
+    every call did before it was cached.
     """
     _check_args(sm, x)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return smem_probe_reference(sm, x)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"smem_probe: no kernel for device {x.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"smem_probe: no kernel for device {dev}")
     if sm.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError("sm, x: the kernel needs 16-byte aligned tensors")
-    tiles = x.shape[0] // TILE_ROWS
-    if multicast and tiles % CLUSTER:
-        raise ValueError(f"multicast: {tiles} tiles, not a multiple of {CLUSTER}")
 
     from raytracingc_tpu_torch.ops import _build
 
     lib = _build.load_library()
     out = torch.empty_like(x)
-    index = x.device.index
-    with torch.cuda.device(index):
+    index = dev.index
+    with (torch.cuda.device(index) if index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         if set_limit or index not in _limit_set:
-            _build.check(lib.rtc_smem_set_limit(optin_bytes(x.device)),
+            _build.check(lib.rtc_smem_set_limit(optin_bytes(dev)),
                          "cudaFuncSetAttribute")
             _limit_set.add(index)
-        code = lib.rtc_smem_probe(sm.data_ptr(), x.data_ptr(), sm.shape[0], tiles,
-                                  out.data_ptr(), int(multicast), launches,
-                                  torch.cuda.current_stream().cuda_stream)
+        code = lib.rtc_smem_probe(sm.data_ptr(), x.data_ptr(), sm.shape[0],
+                                  x.shape[0] // TILE_ROWS, out.data_ptr(), launches,
+                                  torch._C._cuda_getCurrentRawStream(index))
     _build.check(code, "smem_probe launch")
     smem_probe.launches += launches
     return out
@@ -155,7 +152,7 @@ def ladder(limit_bytes: int) -> list[int]:
     return sorted({12288, 16384, 32768, 49152, 57344, words, words + 1, 65536})
 
 
-def run_ladder(device, sizes, multicast: bool = False):
+def run_ladder(device, sizes):
     """Probe each size in order; ``[(n, equal to the plain version, the
     refusal or None)]``, stopping after the first refusal."""
     from raytracingc_tpu_torch.ops._build import CudaError
@@ -165,7 +162,7 @@ def run_ladder(device, sizes, multicast: bool = False):
     for n in sizes:
         sm = torch.arange(n, dtype=torch.int32, device=device)
         try:
-            got = smem_probe(sm, x, multicast=multicast)
+            got = smem_probe(sm, x)
         except CudaError as e:
             out.append((n, False, e))
             break

@@ -139,9 +139,8 @@ REPO = Path(__file__).resolve().parent.parent
 def test_smem_staging_split_covers_the_table(n):
     """K10's staging (csrc/smem_probe.cu): the bulk-copy body and the tail of
     plain loads cover [0, n) exactly, the body in 16-byte units within the
-    mbarrier's tx-count, the tail with room for the 8-byte mbarrier; the
-    one-CTA kernel's 32 KiB copies and the multicast ranks' eighths each
-    cover the body once."""
+    mbarrier's tx-count, the tail with room for the 8-byte mbarrier, and
+    the kernel's 32 KiB copies cover the body once."""
     body, tail = smem_probe.staging_split(n)
     assert body + tail == n and body >= 0 and body % 4 == 0
     assert body * 4 < 2**20  # mbarrier tx-count range
@@ -155,18 +154,11 @@ def test_smem_staging_split_covers_the_table(n):
         covered[off // 4:min(off + 32768, body * 4) // 4] += 1
     covered[body:] += 1
     assert (covered == 1).all()
-    units = body // 4
-    per = -(-units // smem_probe.CLUSTER)
-    ranks = np.zeros(units, np.int32)
-    for k in range(smem_probe.CLUSTER):
-        ranks[k * per:min(k * per + per, units)] += 1
-    assert (ranks == 1).all()
 
 
 def test_smem_staging_constants_match_the_source():
     src = (REPO / "raytracingc_tpu_torch" / "csrc" / "smem_probe.cu").read_text()
     assert f"constexpr int kTailMin = {smem_probe.TAIL_MIN};" in src
-    assert f"constexpr int kCluster = {smem_probe.CLUSTER};" in src
     assert "constexpr uint32_t kChunkBytes = 32768;" in src
     assert "return n >= 4 + kTailMin ? (n - kTailMin) / 4 * 4 : 0;" in src
 
