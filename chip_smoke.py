@@ -7,8 +7,11 @@ per source, in parallel), holds each against its plain PyTorch version on
 the card (bit for bit; the tensor-core MXU kernel within its contract),
 drives the renderer's main path through the CLI (the user's entry point) at
 every kernel's scene size and under every search knob that picks a kernel,
-runs the two measurement tools through their entry points, and compares a
-small render on the card with the same render on the CPU. Each phase prints
+then its progressive (checkpointed, resumed), bounce-heatmap, trace and
+loader-test entry points, runs the two measurement tools through their
+entry points, compares a small render on the card with the same render on
+the CPU, and runs the integrator's other modes and the training path (with
+a checkpointed resume). Each phase prints
 one line per step; any failure raises and the script exits non-zero without
 printing a result.
 
@@ -270,6 +273,56 @@ TOOL_RUNS = (
 # from inside (no sky in view), neither black nor blown out.
 MEAN_BAND = (60.0, 180.0)
 
+# Runs (r)-(u), on the main path after (a)-(n): the CLI's last single-device
+# flags and what they call. (r): run (b)'s frame rendered progressively
+# through --checkpoint F --batch-spp 2 (K1): as many traced rays as (b),
+# every BMP byte within 1 of (b)'s (the sample average re-associates), the
+# checkpoint's __step__ 8; through the API, render_progressive against
+# render within REASSOC_PROGRESSIVE (the JAX package's bound,
+# tests/test_utils.py:45) with equal counts, and its checkpoint's sum equal
+# to (r)'s bit for bit. (r'): the same API render stopped by an on_batch
+# that raises after batch 2, then resumed through the CLI on its checkpoint:
+# a BMP byte-identical to (r)'s and a linear image equal to the
+# uninterrupted API run's bit for bit. (s): --debug-bounces on (m)'s scene
+# (--tessellate 4, K2): one traced ray a pixel, bytes of k/8 only; the API's
+# render_debug of the frame holds only multiples of 1/8 and tonemaps to the
+# CLI's bytes; at DEBUG_SMALL the card equals the CPU port on >=
+# MIN_CLOSE_FRAC of the pixels (phase 5's rule). (t): --trace DIR on
+# TRACE_FLAGS (K1): DIR holds one Chrome trace whose device kernel events
+# include search_brute, as many as the wrapper counted. (u): objtest on
+# examples/box_scene.txt --txt --native and on an OBJ + MTL (OBJTEST_OBJ,
+# OBJTEST_MTL) written to a temporary directory: exit 0, the native arrays
+# equal to the Python parser's.
+PROGRESSIVE = dict(width=1920, height=1080, spp=8, max_bounce=8)
+PROGRESSIVE_FLAGS = ["-s", str(PROGRESSIVE["width"]), str(PROGRESSIVE["height"]),
+                     "--spp", str(PROGRESSIVE["spp"]), "-b",
+                     str(PROGRESSIVE["max_bounce"])]
+PROGRESSIVE_BATCH = 2
+PROGRESSIVE_STOP = 4  # samples done when the interrupted run stops (batch 2)
+REASSOC_PROGRESSIVE = dict(rtol=2e-6, atol=2e-7)
+DEBUG = dict(width=1920, height=1080, max_bounce=8)
+DEBUG_TESSELLATE = 4
+DEBUG_FLAGS = ["-s", str(DEBUG["width"]), str(DEBUG["height"]), "-b",
+               str(DEBUG["max_bounce"]), "--tessellate", str(DEBUG_TESSELLATE)]
+DEBUG_SMALL = dict(width=64, height=64, max_bounce=8)
+TRACE_FLAGS = ["-s", "128", "128", "--spp", "4"]
+OBJTEST_OBJ = """\
+mtllib scene.mtl
+v 0 0 0
+v 1 0 0
+v 0 1 0
+v 1 1 1
+vn 0 0 1
+vn 0.6 0 0.8
+usemtl glow
+f 1/1/1 2/1/1 3/1/1
+usemtl shiny
+f 2/1/2 4/1/2 3/1/2 1/1/1
+usemtl missing
+f 3/1/1 2/1/2 4/1/2
+"""
+OBJTEST_MTL = "newmtl glow\nKd 0.9 0.8 0.7\nKe 5 1 1\nnewmtl shiny\nKd 0.1 0.2 0.3\nNs 250\n"
+
 # Phase 5: the port on the card against the port on the CPU. Same tolerance
 # as tests/test_torch_render.py: CPU and CUDA libm differ by ulps in log/cos
 # (Box-Muller), which can send a ray near an edge down another path.
@@ -298,10 +351,15 @@ REASSOC = dict(rtol=3e-6, atol=3e-7)
 # refreshed every step, then of fit_camera. The target is the scene's own
 # render (production mode); the albedo run starts from albedo x 0.5, the
 # geometry run from the true scene against a 0.9-dimmed target, the camera
-# run from the origin moved by (0.12, -0.08, 0.1).
+# run from the origin moved by (0.12, -0.08, 0.1); then the geometry run
+# again with accel_rebuild_every=2. Checkpoints: the albedo run and the
+# rebuilding geometry run, TRAIN_RESUME_AT steps with a checkpoint, then
+# resumed to TRAIN_STEPS, must equal their uninterrupted runs bit for bit
+# (the resumed losses, the fitted leaves and accel).
 TRAIN = dict(width=256, height=256, spp=2, max_bounce=4)
 TRAIN_TESSELLATE = 4
 TRAIN_STEPS = 5
+TRAIN_RESUME_AT = 3  # steps of the interrupted run before its resume
 TRAIN_GEOMETRY = ["triangles.normal", "triangles.b", "triangles.c"]
 # Gradients on the card against the CPU port, one step at 32x32 (the
 # scene's leaves, loss mean(radiance * w) with w from a seeded generator):
@@ -337,6 +395,264 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def counted(kernels: dict, totals: dict, expect: str, label: str, fn):
+    """Run ``fn()`` with every kernel's launch count set to 0 just before it
+    and read just after; add the counts to ``totals``. Raises unless
+    ``expect`` launched and no other kernel did. Returns ``(fn's result,
+    launches of expect)``."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    launched = {k: f.launches for k, f in kernels.items()}
+    for k, v in launched.items():
+        totals[k] += v
+    if launched[expect] < 1:
+        raise AssertionError(f"{label}: {expect} never launched")
+    others = {k: v for k, v in launched.items() if k != expect and v}
+    if others:
+        raise AssertionError(f"{label}: other kernels launched: {others}")
+    return out, launched[expect]
+
+
+def run_cli(cli_main, label: str, argv: list) -> tuple[str, float, int]:
+    """The port's CLI on the card with ``--profile``: ``(log, render
+    seconds, traced rays)``; raises on a non-zero exit."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["--device", "cuda", "--triangles", BOX_SCENE, "--profile",
+                       *argv])
+    log = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"{label}: cli exit code {rc}\n{log}")
+    prof = re.search(r"render=([0-9.]+)s rays=(\d+)", log)
+    if prof is None:
+        raise AssertionError(f"{label}: no [profile] line\n{log}")
+    return log, float(prof.group(1)), int(prof.group(2))
+
+
+def check_progressive(dev, tmp, cli_main, count, b_bmp, b_rays) -> dict:
+    """Runs (r) and (r'). ``count(expect, label, fn)`` runs ``fn`` under the
+    launch counters. Returns the numbers of their phase lines."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.render import progressive
+    from raytracingc_tpu_torch.render.image import read_bmp
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+
+    out = {}
+    # (r) through the CLI, each checkpoint write timed after a device sync:
+    # its time is the copy of the sum to the host and the file's write.
+    saves = []
+    save = progressive.save_pytree
+
+    def timed_save(*args, **kw):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        save(*args, **kw)
+        saves.append(time.perf_counter() - t)
+
+    ck_r, bmp_r = os.path.join(tmp, "r.npz"), os.path.join(tmp, "r.bmp")
+    progressive.save_pytree = timed_save
+    try:
+        (_, wall, rays), n = count("search_brute", "r", lambda: run_cli(
+            cli_main, "r", [*PROGRESSIVE_FLAGS, "-o", bmp_r, "--checkpoint", ck_r,
+                            "--batch-spp", str(PROGRESSIVE_BATCH)]))
+    finally:
+        progressive.save_pytree = save
+    img_r, img_b = read_bmp(bmp_r), read_bmp(b_bmp)
+    worst = int(np.abs(img_r.astype(int) - img_b.astype(int)).max())
+    if rays != b_rays or worst > 1:
+        raise AssertionError(f"r: {rays} traced rays against (b)'s {b_rays}, "
+                             f"bytes differ by up to {worst}")
+    with np.load(ck_r) as data:
+        if int(data["__step__"]) != PROGRESSIVE["spp"] or int(data["leaf_1"]) != rays:
+            raise AssertionError(f"r: checkpoint step {data['__step__']}, count "
+                                 f"{data['leaf_1']}")
+    out["r"] = dict(wall=wall, rays=rays, launches=n, saves=saves,
+                    bytes_differ=float((img_r != img_b).mean()))
+
+    # The API: render_progressive against render, and against (r)'s sum.
+    scene = scene_from_triangles_txt(BOX_SCENE).to(dev)
+    cam = Camera.look_at(device=dev)
+    frame = PROGRESSIVE
+    sync = lambda: torch.cuda.synchronize(dev)
+    ck_api, ck_stop = os.path.join(tmp, "api.npz"), os.path.join(tmp, "stop.npz")
+    with torch.no_grad():
+        t = time.time()
+        (one, n_one), _ = count("search_brute", "r api render", lambda: render(
+            scene, cam, **frame))
+        sync()
+        t_one = time.time() - t
+        t = time.time()
+        (prog, n_prog), _ = count("search_brute", "r api progressive", lambda: (
+            progressive.render_progressive(
+                scene, cam, **frame, batch_spp=PROGRESSIVE_BATCH,
+                checkpoint_path=ck_api)))
+        sync()
+        t_prog = time.time() - t
+    np.testing.assert_allclose(prog.cpu().numpy(), one.cpu().numpy(),
+                               **REASSOC_PROGRESSIVE)
+    if not n_prog == n_one == rays:
+        raise AssertionError(f"r api: rays {n_prog} progressive, {n_one} one-shot, "
+                             f"{rays} CLI")
+    with np.load(ck_r) as a, np.load(ck_api) as b:
+        if not (np.array_equal(a["leaf_0"].view(np.int32), b["leaf_0"].view(np.int32))
+                and int(a["leaf_1"]) == int(b["leaf_1"])):
+            raise AssertionError("r: the CLI's checkpoint is not the API run's")
+    out["api"] = dict(one=t_one, prog=t_prog,
+                      max_rel=float(((prog - one).abs() / one.abs().clamp_min(1e-30))
+                                    .max()))
+
+    # (r'): stopped after batch 2, resumed through the CLI.
+    class Stop(Exception):
+        pass
+
+    def stop_after_batch_2(done, total, partial):
+        if done >= PROGRESSIVE_STOP:
+            raise Stop
+
+    def interrupted():
+        try:
+            progressive.render_progressive(
+                scene, cam, **frame, batch_spp=PROGRESSIVE_BATCH,
+                checkpoint_path=ck_stop, on_batch=stop_after_batch_2)
+        except Stop:
+            return True
+        return False
+
+    with torch.no_grad():
+        stopped, _ = count("search_brute", "r' stopped", interrupted)
+    with np.load(ck_stop) as data:
+        step = int(data["__step__"])
+    if not stopped or step != PROGRESSIVE_STOP:
+        raise AssertionError(f"r': stopped {stopped}, checkpoint step {step}")
+    bmp_r2 = os.path.join(tmp, "r2.bmp")
+    (_, wall2, rays2), n2 = count("search_brute", "r'", lambda: run_cli(
+        cli_main, "r'", [*PROGRESSIVE_FLAGS, "-o", bmp_r2, "--checkpoint", ck_stop,
+                         "--batch-spp", str(PROGRESSIVE_BATCH)]))
+    with open(bmp_r, "rb") as f, open(bmp_r2, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("r': the resumed BMP differs from (r)'s")
+    with np.load(ck_stop) as data:
+        resumed = torch.from_numpy(data["leaf_0"]).to(dev) / float(frame["spp"])
+        step = int(data["__step__"])
+    if rays2 != rays or step != frame["spp"]:
+        raise AssertionError(f"r': {rays2} traced rays against {rays}, step {step}")
+    if not torch.equal(resumed.view(torch.int32), prog.view(torch.int32)):
+        raise AssertionError("r': the resumed image is not the uninterrupted "
+                             "API run's bits")
+    out["r'"] = dict(wall=wall2, launches=n2)
+    return out
+
+
+def check_debug(dev, tmp, cli_main, count) -> dict:
+    """Run (s): the bounce-count heatmap through the CLI and the API."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.render.image import read_bmp, tonemap_to_bytes
+    from raytracingc_tpu_torch.render.integrator import render_debug
+
+    bmp = os.path.join(tmp, "s.bmp")
+    (_, wall, rays), n = count("search_bitmask", "s", lambda: run_cli(
+        cli_main, "s", [*DEBUG_FLAGS, "--debug-bounces", "-o", bmp]))
+    img = read_bmp(bmp)
+    b = DEBUG["max_bounce"]
+    levels = set(tonemap_to_bytes(np.arange(b + 1, dtype=np.float32) / b).tolist())
+    if img.shape != (DEBUG["height"], DEBUG["width"], 3) or rays != (
+            DEBUG["width"] * DEBUG["height"]) or not set(
+            np.unique(img).tolist()) <= levels:
+        raise AssertionError(f"s: shape {img.shape}, {rays} rays, bytes "
+                             f"{sorted(set(np.unique(img).tolist()) - levels)} "
+                             f"outside {sorted(levels)}")
+    scene = train_scene(dev, tessellate=DEBUG_TESSELLATE)
+    cam = Camera.look_at(device=dev)
+    t = time.time()
+    heat, _ = count("search_bitmask", "s api", lambda: render_debug(
+        scene, cam, **DEBUG))
+    torch.cuda.synchronize(dev)
+    t_api = time.time() - t
+    if not (torch.equal(heat * b, torch.round(heat * b))
+            and float(heat.min()) >= 0.0 and float(heat.max()) <= 1.0):
+        raise AssertionError(f"s: the heatmap holds values other than k/{b}")
+    if not np.array_equal(tonemap_to_bytes(heat.cpu().numpy()), img):
+        raise AssertionError("s: the API's heatmap does not tonemap to the CLI's bytes")
+    small, _ = count("search_bitmask", "s small", lambda: render_debug(
+        scene, cam, **DEBUG_SMALL))
+    small_cpu = render_debug(scene.to("cpu"), cam.to("cpu"), **DEBUG_SMALL)
+    same = float((small.cpu() == small_cpu).all(-1).float().mean())
+    if same < MIN_CLOSE_FRAC:
+        raise AssertionError(f"s: card vs CPU heatmap equal on {same:.4f} of pixels")
+    hist = np.bincount(np.rint(heat[..., 0].cpu().numpy().ravel() * b).astype(int),
+                       minlength=b + 1)
+    return dict(wall=wall, api=t_api, launches=n, same=same,
+                mean_bounces=float((hist * np.arange(b + 1)).sum() / hist.sum()))
+
+
+def check_trace(tmp, cli_main, count) -> dict:
+    """Run (t): --trace DIR writes a Chrome trace holding the search kernel."""
+    import glob
+
+    trace_dir = os.path.join(tmp, "trace")
+    (log, wall, rays), n = count("search_brute", "t", lambda: run_cli(
+        cli_main, "t", [*TRACE_FLAGS, "-o", os.path.join(tmp, "t.bmp"),
+                        "--trace", trace_dir]))
+    files = glob.glob(os.path.join(trace_dir, "*.json"))
+    if len(files) != 1 or files[0] not in log:
+        raise AssertionError(f"t: trace files {files}\n{log}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    brute = [e for e in kernels if "search_brute" in e.get("name", "")]
+    if len(brute) != n:
+        raise AssertionError(f"t: {len(brute)} search_brute kernel events in the "
+                             f"trace, {n} launches counted; kernel names: "
+                             f"{sorted({e.get('name', '')[:40] for e in kernels})[:20]}")
+    return dict(wall=wall, rays=rays, launches=n, kernels=len(kernels),
+                brute_us=sum(float(e.get("dur", 0)) for e in brute),
+                device_us=sum(float(e.get("dur", 0)) for e in kernels),
+                size=os.path.getsize(files[0]))
+
+
+def check_objtest(tmp) -> dict:
+    """Run (u): the loader entry point on the native C++ loader."""
+    import numpy as np
+
+    from raytracingc_tpu_torch import objtest
+    from raytracingc_tpu_torch.scene import native
+    from raytracingc_tpu_torch.scene.obj_loader import load_obj
+    from raytracingc_tpu_torch.scene.triangles_txt import load_triangles_txt
+
+    obj = os.path.join(tmp, "scene.obj")
+    with open(obj, "w") as f:
+        f.write(OBJTEST_OBJ)
+    with open(os.path.join(tmp, "scene.mtl"), "w") as f:
+        f.write(OBJTEST_MTL)
+    t = time.time()
+    logs = []
+    for argv in ([BOX_SCENE, "--txt", "--native"], [obj, "--native"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = objtest.main(argv)
+        logs.append(buf.getvalue().strip().replace("\n", "; "))
+        if rc != 0 or "native C++ loader" not in buf.getvalue():
+            raise AssertionError(f"u: objtest {argv}: exit {rc}\n{buf.getvalue()}")
+    mesh = load_obj(obj)
+    pairs = [(native.load_triangles_txt_native(BOX_SCENE), load_triangles_txt(BOX_SCENE)),
+             (native.load_obj_native(obj),
+              [getattr(mesh, f) for f in ("verts", "normals", "albedo", "emission",
+                                          "smoothness")])]
+    for got, want in pairs:
+        if not all(np.array_equal(g, w) and g.dtype == w.dtype
+                   for g, w in zip(got, want)):
+            raise AssertionError("u: the native arrays differ from the Python parser's")
+    return dict(seconds=time.time() - t, logs=logs, library=native.library_path().name)
 
 
 def random_soup(rng, n_live: int, n_rays: int):
@@ -1212,26 +1528,64 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
         raise AssertionError("run q: the differentiable forward under autograd is "
                              "not production's bits")
 
-    out = {}
-    for name, fit in (
-            ("albedo", lambda: fit_scene(dim, target, cam, steps=steps,
-                                         learning_rate=5e-2, trainable=["albedo"],
-                                         **shape)),
-            ("geometry", lambda: fit_scene(scene, target * 0.9, cam, steps=steps,
+    out, fitted = {}, {}
+    fits = {
+        "albedo": lambda **kw: fit_scene(dim, target, cam, learning_rate=5e-2,
+                                         trainable=["albedo"], **shape, **kw),
+        "geometry": lambda **kw: fit_scene(scene, target * 0.9, cam,
                                            learning_rate=1e-3,
-                                           trainable=TRAIN_GEOMETRY, **shape)),
-            ("camera", lambda: fit_camera(scene, target, dataclasses.replace(
-                cam, origin=cam.origin + torch.tensor([0.12, -0.08, 0.1], device=dev)),
-                steps=steps, learning_rate=1e-3, **shape))):
+                                           trainable=TRAIN_GEOMETRY, **shape, **kw),
+        "camera": lambda **kw: fit_camera(scene, target, dataclasses.replace(
+            cam, origin=cam.origin + torch.tensor([0.12, -0.08, 0.1], device=dev)),
+            learning_rate=1e-3, **shape, **kw),
+        # The geometry run again, its accel re-sorted every 2 steps: the run
+        # that a resume must continue on the accel it had.
+        "geometry, accel_rebuild_every=2": lambda **kw: fit_scene(
+            scene, target * 0.9, cam, learning_rate=1e-3, trainable=TRAIN_GEOMETRY,
+            accel_rebuild_every=2, **shape, **kw),
+    }
+
+    def timed(name, fit, **kw):
         sync()
         k2 = search_bitmask.launches
         t = time.time()
-        _, losses = fit()
+        result, losses = fit(**kw)
         sync()
         out[name] = (losses, time.time() - t, search_bitmask.launches - k2)
+        return result
+
+    for name, fit in fits.items():
+        fitted[name] = timed(name, fit, steps=steps)
     albedo = out["albedo"][0]
     if not albedo[-1] < albedo[0]:
         raise AssertionError(f"run q: the albedo loss did not fall: {albedo}")
+
+    # Checkpoints: TRAIN_RESUME_AT steps with a checkpoint, then resumed from
+    # it to `steps`: the resumed losses, the fitted leaves and the fitted
+    # accel equal the uninterrupted run's bit for bit.
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("albedo", "geometry, accel_rebuild_every=2"):
+            ck = os.path.join(tmp, "fit.npz")
+            timed(f"{name}, first {TRAIN_RESUME_AT}", fits[name],
+                  steps=TRAIN_RESUME_AT, checkpoint_path=ck)
+            resumed = timed(f"{name}, resumed", fits[name], steps=steps,
+                            checkpoint_path=ck)
+            first = out[f"{name}, first {TRAIN_RESUME_AT}"][0]
+            rest = out[f"{name}, resumed"][0]
+            if first + rest != out[name][0] or len(rest) != steps - TRAIN_RESUME_AT:
+                raise AssertionError(f"run q {name}: losses {first} + {rest} "
+                                     f"against {out[name][0]}")
+            whole = fitted[name]
+            for k, v in scene_leaves(whole).items():
+                if not torch.equal(scene_leaves(resumed)[k].view(torch.int32),
+                                   v.view(torch.int32)):
+                    raise AssertionError(f"run q {name}: the resumed {k} is not "
+                                         f"the uninterrupted run's bits")
+            for f in ("orig_idx", "aabb_lo", "aabb_hi", "packed_plane"):
+                if not torch.equal(getattr(resumed.accel, f), getattr(whole.accel, f)):
+                    raise AssertionError(f"run q {name}: the resumed accel's {f} "
+                                         f"differs")
+            os.unlink(ck)
     return out, t_fwd, t_bwd
 
 
@@ -1467,6 +1821,48 @@ def main() -> int:
             phase("main", t, f"{label}: render {render_s:.3f}s, {rays} rays, "
                   f"{rays / render_s:.4g} rays/s, {launched[expect]} {expect} "
                   f"launches, mean byte {mean:.2f}, BMP sha256 {digest}{same}")
+
+        # Runs (r)-(u): progressive rendering and its resume, the heatmap,
+        # the trace and the loader entry point.
+        count = lambda expect, label, fn: counted(kernels, total_launches, expect,
+                                                  label, fn)
+        t = time.time()
+        prog = check_progressive(dev, tmp, cli_main, count,
+                                 os.path.join(tmp, "main_b.bmp"), traced["b"])
+        r, r2, api = prog["r"], prog["r'"], prog["api"]
+        phase("main", t, f"r: {' '.join(PROGRESSIVE_FLAGS)} --checkpoint F "
+              f"--batch-spp {PROGRESSIVE_BATCH}: render {r['wall']:.3f}s, "
+              f"{r['rays']} rays (== (b)'s), {r['launches']} search_brute "
+              f"launches, checkpoint writes {sum(r['saves']):.3f}s in "
+              f"{len(r['saves'])} ({sum(r['saves']) / r['wall']:.1%} of the render; "
+              f"each " + ", ".join(f"{x:.3f}" for x in r["saves"]) + " s), "
+              f"{r['bytes_differ']:.4%} of BMP bytes differ from (b)'s by 1; API "
+              f"render {api['one']:.3f}s, render_progressive {api['prog']:.3f}s, "
+              f"within {REASSOC_PROGRESSIVE} (max rel {api['max_rel']:.3g}), same "
+              f"rays, its checkpoint == (r)'s bit for bit")
+        phase("main", t, f"r': stopped after {PROGRESSIVE_STOP} samples, resumed "
+              f"through the CLI: render {r2['wall']:.3f}s, {r2['launches']} "
+              f"search_brute launches; BMP byte-identical to (r)'s, linear image "
+              f"== the uninterrupted API run's bits")
+        t = time.time()
+        dbg = check_debug(dev, tmp, cli_main, count)
+        phase("main", t, f"s: --debug-bounces {' '.join(DEBUG_FLAGS)}: render "
+              f"{dbg['wall']:.3f}s (API {dbg['api']:.3f}s), {dbg['launches']} "
+              f"search_bitmask launches, mean bounces {dbg['mean_bounces']:.3f}; "
+              f"multiples of 1/{DEBUG['max_bounce']} only, the API's bytes == the CLI's; "
+              f"{DEBUG_SMALL}: card == CPU on {dbg['same']:.4f} of pixels")
+        t = time.time()
+        tr = check_trace(tmp, cli_main, count)
+        phase("main", t, f"t: --trace on {' '.join(TRACE_FLAGS)}: render "
+              f"{tr['wall']:.3f}s, {tr['rays']} rays; trace {tr['size']} bytes, "
+              f"{tr['kernels']} device kernel events ({tr['device_us'] / 1e3:.3f} "
+              f"ms), {tr['launches']} search_brute events == launches "
+              f"({tr['brute_us'] / 1e3:.3f} ms)")
+        t = time.time()
+        ot = check_objtest(tmp)
+        phase("main", t, f"u: objtest --native ({ot['library']}, built and run "
+              f"in {ot['seconds']:.2f}s): " + " | ".join(ot["logs"])
+              + "; native arrays == the Python parser's")
 
     for label, module, argv, expect in TOOL_RUNS:
         t = time.time()

@@ -1,3 +1,36 @@
-"""raytracingc_tpu_torch: the renderer ported to PyTorch and CUDA."""
+"""raytracingc_tpu_torch: the renderer ported to PyTorch and CUDA.
+
+The JAX package's exports (``raytracingc_tpu/__init__.py``): the scene data
+model, the camera, the renderers (one-shot, tonemapped, progressive) and
+the scene loaders; ``fit_scene`` is imported lazily. The multi-device entry
+points ``render_sharded`` and ``make_mesh`` are not ported yet (ROADMAP
+Queue 1 item 10).
+"""
 
 __version__ = "0.1.0"
+
+from raytracingc_tpu_torch.scene.types import (  # noqa: F401
+    Triangles,
+    Spheres,
+    EnvParams,
+    Scene,
+)
+from raytracingc_tpu_torch.camera import Camera, look_at_basis, primary_rays  # noqa: F401
+from raytracingc_tpu_torch.render.renderer import render, render_image  # noqa: F401
+from raytracingc_tpu_torch.render.progressive import render_progressive  # noqa: F401
+from raytracingc_tpu_torch.scene.builder import (  # noqa: F401
+    scene_from_obj,
+    scene_from_triangles_txt,
+)
+
+
+def __getattr__(name):
+    if name == "fit_scene":
+        from raytracingc_tpu_torch.diff.optimize import fit_scene
+
+        return fit_scene
+    if name in ("render_sharded", "make_mesh"):
+        raise AttributeError(
+            f"raytracingc_tpu_torch.{name}: multi-device rendering is not "
+            "ported yet (ROADMAP Queue 1 item 10, parallel)")
+    raise AttributeError(name)

@@ -6,9 +6,13 @@ falls back to the CPU). ``--backend``: ``auto`` runs the CUDA kernels on a
 card and their plain versions on the CPU, ``xla`` the accel-free plain scan
 on either device, ``pallas`` the CUDA kernels (raises on the CPU). Scenes
 carry the block-AABB accel, rebuilt after ``--tessellate``.
+``--checkpoint FILE --batch-spp N`` renders progressively (resumable),
+``--debug-bounces`` the bounce-count heatmap, ``--trace DIR`` writes a
+torch.profiler Chrome trace of the run into DIR.
 
-Flags of features not ported yet raise ``SystemExit`` naming the ROADMAP
-item that will port them; none is silently ignored.
+The multi-device flags (``--shard``, ``--scene-sharding``, the multi-host
+ones) are not ported yet: they raise ``SystemExit`` naming the ROADMAP item
+that will port them; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -66,11 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pixels traced per step (memory bound)")
     p.add_argument("--profile", action="store_true", help="print timing breakdown")
     p.add_argument("--debug-bounces", action="store_true",
-                   help="bounce-count heatmap (not ported yet)")
+                   help="render the bounce-count heatmap instead of radiance "
+                        "(the reference's calcDebugColor)")
     p.add_argument("--trace", metavar="DIR", default=None,
-                   help="capture a device profile trace (not ported yet)")
+                   help="capture a torch.profiler trace (Chrome format) to DIR")
     p.add_argument("--checkpoint", metavar="FILE.npz", default=None,
-                   help="progressive checkpointed render (not ported yet)")
+                   help="progressive sample-batch checkpointing (resumable)")
     p.add_argument("--batch-spp", type=int, default=64,
                    help="samples per checkpoint batch (with --checkpoint)")
     p.add_argument("--coordinator", default=None,
@@ -89,12 +94,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (args.shard != "none", "--shard", "ROADMAP Queue 1 item 10 (parallel)"),
         (args.scene_sharding != "replicated", "--scene-sharding blocks",
          "ROADMAP Queue 1 item 10 (parallel)"),
-        (args.checkpoint is not None, "--checkpoint",
-         "ROADMAP Queue 1 item 9 (progressive rendering)"),
-        (args.batch_spp != 64, "--batch-spp",
-         "ROADMAP Queue 1 item 9 (progressive rendering)"),
-        (args.debug_bounces, "--debug-bounces", "ROADMAP Queue 1 item 5 (CLI)"),
-        (args.trace is not None, "--trace", "ROADMAP Queue 1 item 9 (profiling)"),
         (args.coordinator is not None or args.num_processes is not None
          or args.process_id is not None,
          "--coordinator/--num-processes/--process-id",
@@ -107,13 +106,47 @@ def _refuse_unported(args: argparse.Namespace) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.scene_sharding != "replicated" and (
+        args.shard == "none" or args.checkpoint or args.debug_bounces
+    ):
+        # The JAX package's guard: only the plain sharded render honours
+        # block sharding.
+        raise SystemExit(
+            "--scene-sharding blocks requires --shard pixels|samples and "
+            "is not supported with --checkpoint/--debug-bounces (and "
+            "multi-device rendering is not ported to raytracingc_tpu_torch "
+            "yet: ROADMAP Queue 1 item 10, parallel)"
+        )
     _refuse_unported(args)
 
-    import numpy as np
     import torch
+
+    from raytracingc_tpu_torch.utils.profiling import start_trace, stop_trace
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
+    if args.device == "cpu" and args.backend == "pallas":
+        raise SystemExit("--backend pallas runs the CUDA kernel: it needs --device cuda")
+    device = torch.device(args.device)
+
+    if args.trace:
+        start_trace(args.trace)
+    try:
+        _run(args, device)
+    finally:
+        if args.trace:
+            path = stop_trace()
+            print(f"[trace] profile written to {path}")
+    return 0
+
+
+def _run(args: argparse.Namespace, device) -> None:
+    import numpy as np
 
     from raytracingc_tpu_torch.camera import Camera
     from raytracingc_tpu_torch.render.image import tonemap_to_bytes, write_image
+    from raytracingc_tpu_torch.render.integrator import render_debug
+    from raytracingc_tpu_torch.render.progressive import render_progressive
     from raytracingc_tpu_torch.render.renderer import render
     from raytracingc_tpu_torch.scene.builder import (
         scene_from_obj,
@@ -121,12 +154,6 @@ def main(argv: list[str] | None = None) -> int:
         tessellate,
     )
     from raytracingc_tpu_torch.scene.types import EnvParams
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    if args.device == "cpu" and args.backend == "pallas":
-        raise SystemExit("--backend pallas runs the CUDA kernel: it needs --device cuda")
-    device = torch.device(args.device)
 
     t0 = time.time()
     env = EnvParams.from_values(
@@ -156,10 +183,22 @@ def main(argv: list[str] | None = None) -> int:
     width, height = args.size
 
     t1 = time.time()
-    linear, count = render(
-        scene, cam, width, height, spp=args.spp, max_bounce=args.max_bounce,
-        seed=args.seed, backend=args.backend, pixel_chunk=args.pixel_chunk,
-    )
+    if args.debug_bounces:
+        linear = render_debug(scene, cam, width, height,
+                              max_bounce=args.max_bounce, seed=args.seed,
+                              backend=args.backend)
+        count = width * height
+    elif args.checkpoint:
+        linear, count = render_progressive(
+            scene, cam, width, height, spp=args.spp,
+            max_bounce=args.max_bounce, seed=args.seed, backend=args.backend,
+            batch_spp=args.batch_spp, checkpoint_path=args.checkpoint,
+        )
+    else:
+        linear, count = render(
+            scene, cam, width, height, spp=args.spp, max_bounce=args.max_bounce,
+            seed=args.seed, backend=args.backend, pixel_chunk=args.pixel_chunk,
+        )
     linear = linear.cpu().numpy()  # waits for the device
     t_render = time.time() - t1
     if not np.isfinite(linear).all():
@@ -173,7 +212,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.profile:
         print(f"[profile] load={t_load:.3f}s render={t_render:.3f}s "
               f"rays={count} device={device}")
-    return 0
 
 
 if __name__ == "__main__":

@@ -8,13 +8,15 @@ Each loss runs the integrator's differentiable fast forward
 (``trace_accumulate(early_exit=False, compact=True)``); the search runs on
 the card's kernels under ``torch.no_grad``.
 
-Not ported: ``mesh=`` (ROADMAP Queue 1 item 10, parallel) and
-``checkpoint_path=`` (item 9, progressive rendering and checkpoints) raise.
+``fit_scene(checkpoint_path=)`` snapshots the scene (with its accel) and
+the optimizer's ``state_dict()`` through ``utils/checkpoint.py`` and resumes
+from them. Not ported: ``mesh=`` (ROADMAP Queue 1 item 10, parallel) raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections.abc import Callable, Mapping, Sequence
 
 import numpy as np
@@ -24,6 +26,7 @@ from raytracingc_tpu_torch.camera import Camera, look_at_basis, primary_rays
 from raytracingc_tpu_torch.ops.accel import build_accel, refresh_accel
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
 from raytracingc_tpu_torch.scene.types import Scene, scene_leaves, with_leaves
+from raytracingc_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 
 Grads = Mapping[str, torch.Tensor]
 
@@ -57,6 +60,17 @@ def is_geometry_trained(trainable: Sequence[str] | None) -> bool:
 
 def _adam(params, learning_rate):
     return torch.optim.Adam(params, lr=learning_rate)
+
+
+def _prime(opt: torch.optim.Optimizer) -> None:
+    """Give every parameter the state a first step creates (a step on zero
+    gradients), so that ``opt.state_dict()`` has the structure of a saved
+    one. The caller overwrites the parameters and the state afterwards."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            p.grad = torch.zeros_like(p)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
 
 
 def _check_finite(losses, who):
@@ -122,6 +136,8 @@ def fit_scene(
     optimizer: Callable | None = None,
     mesh=None,
     checkpoint_path: str | None = None,
+    checkpoint_every: int = 50,
+    resume: bool = True,
     log_every: int = 0,
     accel_rebuild_every: int = 0,
 ) -> tuple[Scene, list[float]]:
@@ -133,6 +149,14 @@ def fit_scene(
     it. ``optimizer`` is a factory ``params -> torch.optim.Optimizer``
     (default Adam at ``learning_rate``). Returns ``(fitted scene, losses)``,
     each loss taken before its step.
+
+    ``checkpoint_path`` saves ``(scene, optimizer.state_dict())`` with
+    ``step=i`` after every ``checkpoint_every``-th step ``i`` and once at the
+    end (``step=steps-1``); the saved scene carries the accel the next step
+    would refresh. With ``resume`` an existing checkpoint restarts the loop
+    at its step + 1, and ``losses`` holds only the steps run. A resume
+    primes the optimizer with one step on zero gradients before loading its
+    state, so it supports optimizers whose ``step()`` takes no closure.
 
     Geometry training keeps the accel's culling: each step's search runs
     against :func:`refresh_accel` of the current triangles on the accel's
@@ -146,10 +170,6 @@ def fit_scene(
         raise NotImplementedError(
             "fit_scene(mesh=...): the sharded train step is not ported "
             "(ROADMAP Queue 1 item 10, parallel)")
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "fit_scene(checkpoint_path=...): checkpoints are not ported "
-            "(ROADMAP Queue 1 item 9, progressive rendering and checkpoints)")
     dev = scene.device
     height, width = int(target.shape[0]), int(target.shape[1])
     tgt = target.reshape(-1, 3).to(dev)
@@ -170,8 +190,25 @@ def fit_scene(
     opt = (optimizer or (lambda ps: _adam(ps, learning_rate)))(
         [t for t in params.values() if t.requires_grad])
 
+    def snapshot():
+        """What a checkpoint holds: the current scene with the accel the
+        next step refreshes, and the optimizer's state."""
+        s = with_leaves(scene, {k: t.detach() for k, t in params.items()})
+        return dataclasses.replace(s, accel=accel), opt.state_dict()
+
+    start = 0
+    if checkpoint_path and resume and os.path.exists(checkpoint_path):
+        _prime(opt)
+        (saved_scene, opt_state), saved = load_pytree(checkpoint_path, snapshot())
+        with torch.no_grad():
+            for k, t in scene_leaves(saved_scene).items():
+                params[k].copy_(t)
+        opt.load_state_dict(opt_state)
+        accel = saved_scene.accel
+        start = (saved or 0) + 1
+
     losses: list[float] = []
-    for i in range(steps):
+    for i in range(start, steps):
         s = with_leaves(scene, params)
         if can_refresh:
             with torch.no_grad():
@@ -183,10 +220,16 @@ def fit_scene(
         loss = ((radiance - tgt) ** 2).mean()
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        # Every leaf gets a gradient, zero where the loss does not reach it
+        # (as jax.grad gives), so the optimizer's state covers every trained
+        # leaf from the first step on: a checkpoint's structure never changes.
+        # (param_filter trains every leaf, so it sees them all.)
+        grads = {k: t.grad if t.grad is not None else torch.zeros_like(t)
+                 for k, t in params.items() if t.requires_grad}
         if param_filter is not None:
-            grads = param_filter({k: t.grad if t.grad is not None
-                                  else torch.zeros_like(t) for k, t in params.items()})
-            for k, t in params.items():
+            grads = param_filter(grads)
+        for k, t in params.items():
+            if t.requires_grad:
                 t.grad = grads[k]
         opt.step()
         losses.append(loss.item())
@@ -197,6 +240,10 @@ def fit_scene(
                                     scene.n_triangles)
         if log_every and i % log_every == 0:
             print(f"[fit_scene] step {i}: loss {losses[-1]:.6g}")
+        if checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0:
+            save_pytree(checkpoint_path, snapshot(), step=i)
+    if checkpoint_path and steps > start:
+        save_pytree(checkpoint_path, snapshot(), step=steps - 1)
     _check_finite(losses, "fit_scene")
     fitted = with_leaves(scene, {k: t.detach() for k, t in params.items()})
     if scene.accel is not None and geometry_trained:

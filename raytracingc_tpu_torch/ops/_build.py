@@ -7,7 +7,9 @@ interface, loaded with ``ctypes``. The library goes into
 that carries a hash of the sources, the headers (``csrc/*.cuh``) and the
 flags, so an edited source or header rebuilds. It is written under a
 temporary name and ``os.replace``-d into place, so two processes never load a
-half-written library.
+half-written library. :func:`hashed_library`, :func:`build_shared` and
+:func:`bind` carry that policy for every library the port builds (the native
+scene loader's too).
 
 Nothing here runs on import: the library is built on the first kernel launch
 on a CUDA device (or by :func:`load_library`), never on the CPU.
@@ -86,17 +88,24 @@ def _sources() -> list[Path]:
     return srcs
 
 
+def hashed_library(stem: str, inputs: list[Path], flags) -> Path:
+    """``BUILD_DIR/<stem>_<hash>.so``, the hash over the inputs' names and
+    bytes and the flags, so an edited input or flag names a new library."""
+    h = hashlib.sha256()
+    for f in inputs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
 def library_path() -> Path:
     """Where the library for the current sources, headers and flags lives."""
-    h = hashlib.sha256()
-    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"librtc_kernels_{h.hexdigest()[:16]}.so"
+    return hashed_library("librtc_kernels",
+                          _sources() + sorted(SRC_DIR.glob("*.cuh")), NVCC_FLAGS)
 
 
-def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+def run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
     """Run the commands in parallel; ``(cmd, returncode, output)`` each."""
     procs = [
         (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -107,30 +116,59 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
     return [(cmd, p.returncode, log) for (cmd, p), log in zip(procs, logs)]
 
 
+def build_shared(out: Path, compile_) -> str:
+    """Build the library ``out`` unless it exists; return the compilers'
+    output ("" for an existing library).
+
+    ``compile_(tmpdir, tmp)`` runs the compiler commands (through
+    :func:`run_all`) in a temporary directory under ``BUILD_DIR``, writing
+    the library to the path ``tmp`` in it, and returns their results; ``tmp``
+    is then ``os.replace``-d onto ``out``. A failed command raises
+    ``RuntimeError`` with its command line and output.
+    """
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = Path(tmpdir) / out.name
+        results = compile_(Path(tmpdir), tmp)
+        for cmd, rc, log in results:
+            if rc != 0:
+                raise RuntimeError(f"{Path(cmd[0]).name} failed ({rc}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    return "".join(log for _, _, log in results)
+
+
+def bind(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load the library at ``path`` and set each function's
+    ``(argtypes, restype)`` from ``signatures``."""
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def build() -> Path:
     """Compile the sources unless the hashed library already exists."""
     global build_log
     out = library_path()
-    if out.exists():
-        build_log = ""
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
-        results = _run_all([
+    nvcc = _nvcc() if not out.exists() else ""
+
+    def compile_(tmpdir: Path, tmp: Path):
+        objs = [tmpdir / f"{src.stem}.o" for src in _sources()]
+        results = run_all([
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(_sources(), objs)
         ])
-        tmp = Path(tmpdir) / out.name
         if all(rc == 0 for _, rc, _ in results):
-            results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
-                                  str(tmp), *map(str, objs)]])
-        build_log = "".join(log for _, _, log in results)
-        for cmd, rc, log in results:
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
+            results += run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                 str(tmp), *map(str, objs)]])
+        return results
+
+    build_log = build_shared(out, compile_)
     return out
 
 
@@ -138,12 +176,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
+        _lib = bind(build(), _SIGNATURES)
     return _lib
 
 

@@ -248,3 +248,8 @@ def resolve_hit(o, d, ref: HitRef, scene: Scene) -> Hit:
         emission=torch.where(ref.hit, emission, 0.0),
         smoothness=torch.where(ref.hit, smoothness, 0.0),
     )
+
+
+def intersect(o, d, scene: Scene, backend: str = "auto") -> Hit:
+    """Search and resolve in one call: ``resolve_hit`` of ``nearest_hit``."""
+    return resolve_hit(o, d, nearest_hit(o, d, scene, backend=backend), scene)

@@ -1,5 +1,5 @@
 """Path-tracing integrator: the production forward, the differentiable fast
-forward and the plain full-width oracle.
+forward, the plain full-width oracle, and the bounce-count heatmap.
 
 Counterpart of ``raytracingc_tpu/render/integrator.py``. One Monte-Carlo
 sample follows the reference ``calcColor``: on a hit the ray scatters to
@@ -22,6 +22,9 @@ light and camera carry the gradients (the visibility-frozen subgradient).
 
 Traced rays are counted as Python integers (exact at any size; the JAX
 package sums them in float32).
+
+:func:`render_debug` is the reference's ``calcDebugColor``: the same walk
+without Russian roulette, shading each pixel by its bounce count.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from raytracingc_tpu_torch import rng
+from raytracingc_tpu_torch.camera import primary_rays
 from raytracingc_tpu_torch.ops.env_light import environment_light
 from raytracingc_tpu_torch.ops.intersect import (
     Hit,
@@ -314,3 +318,54 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
     contrib = torch.zeros((r, 3), dtype=torch.float32,
                           device=origins.device).index_copy(0, sel, acc)
     return (light0 * float(spp) + contrib) / float(spp), count
+
+
+def trace_debug_bounces(origins, dirs, rng_state, scene: Scene, max_bounce: int,
+                        backend: str = "auto") -> torch.Tensor:
+    """Bounce-count heatmap (reference ``calcDebugColor``): ``[R, 3]`` in
+    [0, 1], ``clip(bounces / max(max_bounce, 1), 0, 1)`` per ray.
+
+    Counterpart of the JAX package's ``trace_debug_bounces``: the hit and
+    scatter walk at full width under an ``alive`` mask (dead lanes go to the
+    search as dead lanes), with the same RNG draw and direction lerp but NO
+    Russian roulette: a path ends only on a miss or at ``max_bounce``. The
+    JAX package's fixed-length scan becomes a loop that stops once no lane
+    is alive, which changes no value.
+    """
+    scene = with_perm_resolve(scene)
+    r = origins.shape[0]
+    pos, d, state = origins, dirs, rng_state
+    n_bounce = torch.zeros((r,), dtype=torch.float32, device=origins.device)
+    alive = torch.ones((r,), dtype=torch.bool, device=origins.device)
+    for _ in range(max_bounce):
+        if not bool(alive.any()):
+            break
+        hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend,
+                                              alive=alive), scene)
+        state, unit = rng.next_unit_vector(state)
+        diffuse = _normalize(hit.normal + unit)
+        specular = _reflect(d, hit.normal)
+        smooth = hit.smoothness[:, None]
+        new_dir = (1.0 - smooth) * diffuse + smooth * specular
+
+        live_hit = alive & hit.hit
+        n_bounce = n_bounce + live_hit.to(torch.float32)
+        pos = torch.where(live_hit[:, None], hit.point, pos)
+        d = torch.where(live_hit[:, None], new_dir, d)
+        alive = live_hit
+    shade = torch.clamp(n_bounce / float(max(max_bounce, 1)), 0.0, 1.0)
+    return shade[:, None].expand(r, 3)
+
+
+@torch.no_grad()
+def render_debug(scene: Scene, camera, width: int, height: int, max_bounce: int,
+                 seed: int = 0, backend: str = "auto") -> torch.Tensor:
+    """Full-image bounce heatmap, one sample per pixel: ``[H, W, 3]``, on the
+    scene's device (the camera is moved there)."""
+    origins, dirs = primary_rays(camera.to(scene.device), width, height)
+    ray_ids = torch.arange(width * height, dtype=torch.int64,
+                           device=scene.device)
+    state = rng.stream_init(seed, ray_ids, 0)
+    img = trace_debug_bounces(origins, dirs, state, scene, max_bounce,
+                              backend=backend)
+    return img.reshape(height, width, 3)

@@ -1,16 +1,19 @@
-"""Top-level rendering entry point.
+"""Top-level rendering entry points.
 
-Counterpart of ``raytracingc_tpu/render/renderer.py::render``: primary rays
-for every pixel, padded to a multiple of ``pixel_chunk`` with dead rays, and
-traced chunk by chunk through the integrator (by default its production
-mode) so that device memory stays bounded at any resolution.
+Counterpart of ``raytracingc_tpu/render/renderer.py``. :func:`render`:
+primary rays for every pixel, padded to a multiple of ``pixel_chunk`` with
+dead rays, and traced chunk by chunk through the integrator (by default its
+production mode) so that device memory stays bounded at any resolution.
+:func:`render_image`: the same, tonemapped to bytes and optionally written.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raytracingc_tpu_torch.camera import Camera, primary_rays
+from raytracingc_tpu_torch.render.image import tonemap_to_bytes, write_image
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
 from raytracingc_tpu_torch.scene.types import Scene
 
@@ -76,3 +79,17 @@ def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
         count += cnt
     image = torch.cat(radiance)[:n_pix].reshape(height, width, 3)
     return image, count
+
+
+def render_image(scene: Scene, camera: Camera, width: int, height: int,
+                 spp: int, max_bounce: int, seed: int = 0,
+                 backend: str = "auto", output: str | None = None,
+                 pixel_chunk: int | None = None) -> np.ndarray:
+    """Render and tonemap to uint8 ``[H, W, 3]`` (and optionally write a
+    BMP or PNG file, by ``output``'s extension)."""
+    linear, _ = render(scene, camera, width, height, spp, max_bounce,
+                       seed=seed, backend=backend, pixel_chunk=pixel_chunk)
+    img = tonemap_to_bytes(linear.cpu().numpy())
+    if output is not None:
+        write_image(output, img)
+    return img

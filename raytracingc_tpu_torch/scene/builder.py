@@ -71,19 +71,40 @@ def pad_spheres(spheres: Spheres, pad_to: int = 8) -> tuple[Spheres, int]:
     )
 
 
-def scene_from_obj(path: str, env: EnvParams | None = None, pad_to: int = 128,
-                   verbose: bool = False, device="cpu") -> Scene:
-    """Load an OBJ scene. OBJ mode is triangles only."""
+def _load_obj_arrays(path: str, verbose: bool, use_native: bool | None):
+    """OBJ parse through the native C++ loader when it builds, else Python."""
+    if use_native is not False:
+        from raytracingc_tpu_torch.scene import native
+
+        if native.available():
+            return native.load_obj_native(path)
+        if use_native:
+            raise RuntimeError(
+                f"native loader requested but not built ({native.build_error})")
     mesh = load_obj(path, verbose=verbose)
-    verts = mesh.verts.copy()
-    normals = mesh.normals.copy()
+    return mesh.verts, mesh.normals, mesh.albedo, mesh.emission, mesh.smoothness
+
+
+def scene_from_obj(path: str, env: EnvParams | None = None, pad_to: int = 128,
+                   verbose: bool = False, device="cpu",
+                   use_native: bool | None = None) -> Scene:
+    """Load an OBJ scene. OBJ mode is triangles only.
+
+    ``use_native``: ``None`` takes the C++ loader (``scene/native.py``) when
+    it builds, ``True`` requires it, ``False`` forces the Python parser;
+    both give the same arrays.
+    """
+    verts0, normals0, albedo, emission, smoothness = _load_obj_arrays(
+        path, verbose, use_native)
+    verts = verts0.copy()
+    normals = normals0.copy()
     # rotZ(180°) import convention.
     verts[:, :, 0] *= -1.0
     verts[:, :, 1] *= -1.0
     normals[:, 0] *= -1.0
     normals[:, 1] *= -1.0
     tris, n_live = triangles_from_arrays(
-        verts, normals, mesh.albedo, mesh.emission, mesh.smoothness,
+        verts, normals, albedo, emission, smoothness,
         pad_to=pad_to, device=device,
     )
     return Scene(

@@ -1,0 +1,22 @@
+"""Cross-cutting utilities: checkpointing, profiling, failure supervision.
+
+Counterpart of ``raytracingc_tpu/utils``: long renders and optimization runs
+checkpoint and resume (:mod:`checkpoint`), name and trace their phases
+(:mod:`profiling`), and survive transient device failures
+(:mod:`resilient`).
+"""
+
+from raytracingc_tpu_torch.utils.checkpoint import (  # noqa: F401
+    load_pytree,
+    save_pytree,
+)
+from raytracingc_tpu_torch.utils.profiling import (  # noqa: F401
+    Profiler,
+    start_trace,
+    stop_trace,
+    trace_annotation,
+)
+from raytracingc_tpu_torch.utils.resilient import (  # noqa: F401
+    RenderFailure,
+    render_resilient,
+)

@@ -342,8 +342,74 @@ def test_unported_options_raise(demo):
     target = torch.zeros((4, 4, 3))
     with pytest.raises(NotImplementedError, match="item 10"):
         fit_scene(ts, target, tc, steps=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fit_scene(ts, target, tc, steps=1, checkpoint_path="fit.npz")
+
+
+def test_fit_checkpoint_resume(demo, tmp_path):
+    """tests/test_diff.py::test_fit_checkpoint_resume: a resumed fit runs
+    only the steps after the saved one."""
+    import dataclasses
+    import os
+
+    _, ts, _, tc = demo
+    target, _ = render(ts, tc, 8, 8, 2, 2, seed=5, early_exit=False)
+    perturbed = dataclasses.replace(ts, env=dataclasses.replace(
+        ts.env, ground=torch.tensor([0.1, 0.1, 0.1])))
+    ck = str(tmp_path / "fit.npz")
+    kw = dict(spp=2, max_bounce=2, seed=5, trainable=["ground"],
+              checkpoint_path=ck, checkpoint_every=2)
+    _, l1 = fit_scene(perturbed, target, tc, steps=4, **kw)
+    assert os.path.exists(ck) and len(l1) == 4
+    _, l2 = fit_scene(perturbed, target, tc, steps=6, **kw)
+    assert len(l2) == 2  # steps 4..5 only
+
+
+def _geometry_scene():
+    """box_scene tessellated to 640 triangles (5 blocks) with its accel."""
+    import dataclasses
+
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt, tessellate
+
+    box = scene_from_triangles_txt("examples/box_scene.txt")
+    tris, n = tessellate(box.triangles, box.n_triangles, levels=3)
+    return dataclasses.replace(box, triangles=tris, n_triangles=n,
+                               accel=None).with_accel()
+
+
+@pytest.mark.parametrize("kind", ["albedo", "geometry"])
+def test_fit_resume_is_bitwise(demo, tmp_path, kind):
+    """3 steps, then resumed from the checkpoint to 5, against 5 steps in
+    one run: the resumed losses, the fitted leaves and the fitted accel
+    equal bit for bit (the checkpoint carries Adam's step, exp_avg and
+    exp_avg_sq, and the geometry run's accel rebuilt at step 1)."""
+    from raytracingc_tpu_torch.scene.types import scene_leaves
+
+    _, ts, _, tc = demo
+    if kind == "albedo":
+        scene = ts
+        target, _ = render(ts, tc, 8, 8, 2, 2, seed=1)
+        leaves = scene_leaves(ts)
+        leaves[".triangles.albedo"] = leaves[".triangles.albedo"] * 0.5
+        start = with_leaves(ts, leaves)
+        kw = dict(trainable=["albedo"], learning_rate=5e-2)
+    else:
+        scene = _geometry_scene()
+        target, _ = render(scene, tc, 8, 8, 2, 2, seed=1)
+        target = target * 0.9
+        start = scene
+        kw = dict(trainable=["triangles.normal", "triangles.b", "triangles.c"],
+                  learning_rate=1e-3, accel_rebuild_every=2)
+    kw.update(spp=2, max_bounce=2, seed=1)
+    whole, l_whole = fit_scene(start, target, tc, steps=5, **kw)
+    ck = str(tmp_path / "fit.npz")
+    _, l_first = fit_scene(start, target, tc, steps=3, checkpoint_path=ck, **kw)
+    resumed, l_rest = fit_scene(start, target, tc, steps=5, checkpoint_path=ck, **kw)
+    assert l_first + l_rest == l_whole and len(l_rest) == 2
+    for k, v in scene_leaves(whole).items():
+        assert torch.equal(scene_leaves(resumed)[k], v), k
+    if kind == "geometry":
+        assert not torch.equal(whole.triangles.normal, scene.triangles.normal)
+        for f in ("aabb_lo", "aabb_hi", "packed_plane", "orig_idx"):
+            assert torch.equal(getattr(resumed.accel, f), getattr(whole.accel, f)), f
 
 
 def test_pixel_grad_fd_pass_rate(untied, demo):

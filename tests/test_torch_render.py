@@ -17,13 +17,20 @@ import torch
 
 from raytracingc_tpu import rng as jrng
 from raytracingc_tpu.camera import Camera as JCamera
+from raytracingc_tpu.camera import primary_rays as j_primary_rays
+from raytracingc_tpu.render.integrator import render_debug as j_render_debug
 from raytracingc_tpu.render.integrator import trace_paths as j_trace_paths
 from raytracingc_tpu.render.renderer import render as j_render
+from raytracingc_tpu.render.renderer import render_image as j_render_image
 from raytracingc_tpu.scene import builder as jb
 from raytracingc_tpu_torch import bridge
 from raytracingc_tpu_torch import rng as trng
-from raytracingc_tpu_torch.render.integrator import trace_accumulate, trace_paths
-from raytracingc_tpu_torch.render.renderer import render
+from raytracingc_tpu_torch.render.integrator import (
+    render_debug,
+    trace_accumulate,
+    trace_paths,
+)
+from raytracingc_tpu_torch.render.renderer import render, render_image
 
 BOX_SCENE = os.path.join(os.path.dirname(__file__), "..", "examples", "box_scene.txt")
 PIXEL_TOL = 1e-4
@@ -150,3 +157,112 @@ def test_render_modes_and_arguments(scenes):
     # The RNG state layout the integrator uses: int64 in [0, 2**32).
     s = trng.stream_init(0, ids, 2**32 - 1)
     assert s.dtype == torch.int64 and int(s.min()) >= 0 and int(s.max()) < 2**32
+
+
+# --- The bounce-count heatmap, render_image and intersect -------------------
+
+
+def test_render_debug_matches_jax(scenes):
+    """The heatmap against the JAX package's: values are multiples of
+    1/max_bounce; equal on >= 99.5% of pixels (a ray near an edge may take
+    another path, as in the radiance renders)."""
+    js, ts, jc, tc = scenes
+    want = np.asarray(j_render_debug(js, jc, 24, 16, max_bounce=4, seed=3))
+    got = render_debug(ts, tc, 24, 16, max_bounce=4, seed=3).numpy()
+    assert got.shape == want.shape == (16, 24, 3)
+    assert np.array_equal(got * 4, np.round(got * 4))
+    same = (got == want).all(-1)
+    assert same.mean() >= MIN_CLOSE_FRAC, (same.mean(), np.argwhere(~same)[:10])
+    assert 0.0 < got.mean() < 1.0
+
+
+def _mirror_corridor():
+    """tests/test_round2_fixes.py's scene: two huge dark mirrors facing each
+    other, so that every path ping-pongs until max_bounce (albedo 0.05: a
+    roulette would end almost every path after its first hit)."""
+    from raytracingc_tpu_torch.scene.builder import triangles_from_arrays
+    from raytracingc_tpu_torch.scene.types import EnvParams, Scene, Spheres
+
+    s = 1000.0
+    verts = np.array([[[-s, -s, 3], [0, s, 3], [s, -s, 3]],
+                      [[-s, -s, -3], [s, -s, -3], [0, s, -3]]], np.float32)
+    normals = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    tris, n = triangles_from_arrays(verts, normals, np.full((2, 3), 0.05, np.float32),
+                                    np.zeros(2, np.float32), np.ones(2, np.float32))
+    return Scene(triangles=tris, spheres=Spheres.zeros(8), env=EnvParams.default(),
+                 n_triangles=n, n_spheres=0).with_accel()
+
+
+def test_debug_heatmap_has_no_roulette():
+    from raytracingc_tpu_torch.camera import Camera
+
+    cam = Camera.look_at(origin=[0.0, 0.0, 0.0], target=[0.0, 0.0, 1.0])
+    img = render_debug(_mirror_corridor(), cam, 16, 16, max_bounce=6, seed=0)
+    assert torch.equal(img, torch.ones_like(img))
+
+
+def test_render_image_matches_jax(scenes, tmp_path):
+    """Tonemapped bytes against the JAX package's render_image (bytes within
+    1 on >= 99.5% of pixels: the radiance rule above, truncated to bytes),
+    the file written equal to the returned bytes, and equal to tonemapping
+    the port's own render."""
+    from raytracingc_tpu_torch.render.image import read_image, tonemap_to_bytes
+
+    js, ts, jc, tc = scenes
+    want = j_render_image(js, jc, 16, 16, spp=4, max_bounce=3, seed=2)
+    out = str(tmp_path / "port.png")
+    got = render_image(ts, tc, 16, 16, spp=4, max_bounce=3, seed=2, output=out)
+    assert got.dtype == np.uint8 and got.shape == want.shape == (16, 16, 3)
+    near = (np.abs(got.astype(int) - want.astype(int)) <= 1).all(-1)
+    assert near.mean() >= MIN_CLOSE_FRAC, near.mean()
+    np.testing.assert_array_equal(read_image(out), got)
+    linear, _ = render(ts, tc, 16, 16, spp=4, max_bounce=3, seed=2)
+    np.testing.assert_array_equal(tonemap_to_bytes(linear.numpy()), got)
+
+
+def _sphere_only_pair():
+    from raytracingc_tpu.scene.types import Scene as JScene
+    from raytracingc_tpu.scene.types import Spheres as JSpheres
+
+    # No live triangle: 128 all-zero padding rows (the port's Scene needs a
+    # row; the JAX builders pad the same way).
+    jtris, n = jb.triangles_from_arrays(
+        np.zeros((0, 3, 3), np.float32), np.zeros((0, 3), np.float32),
+        np.zeros((0, 3), np.float32), np.zeros(0, np.float32),
+        np.zeros(0, np.float32))
+    jsph = JSpheres(center=jnp.array([[0.0, 0.0, 6.0], [1.5, 0.5, 9.0]]),
+                    radius=jnp.array([1.5, 2.0]),
+                    albedo=jnp.array([[0.2, 0.4, 0.6], [0.9, 0.1, 0.1]]),
+                    emission=jnp.array([0.0, 3.0]),
+                    smoothness=jnp.array([0.25, 0.0]))
+    js = JScene.build(triangles=jtris, spheres=jsph).replace(n_triangles=n)
+    ts = bridge.scene_from_numpy(
+        {f: np.asarray(getattr(js.triangles, f)) for f in bridge.TRIANGLE_FIELDS},
+        {f: np.asarray(getattr(js.spheres, f)) for f in bridge.SPHERE_FIELDS},
+        {f: np.asarray(getattr(js.env, f)) for f in bridge.ENV_FIELDS},
+        js.n_triangles, js.n_spheres)
+    return js, ts
+
+
+@pytest.mark.parametrize("which", ["spheres_only", "box_scene"])
+def test_intersect_matches_jax(scenes, which):
+    """intersect (search + resolve) against the JAX package's
+    ``intersect(backend="xla")``: hit flags equal, geometry and materials to
+    rtol 1e-5, atol 1e-5 (tests/test_torch_search.py's resolve bound)."""
+    from raytracingc_tpu.ops.intersect import intersect as j_intersect
+    from raytracingc_tpu_torch.ops.intersect import intersect
+
+    if which == "spheres_only":
+        js, ts = _sphere_only_pair()
+        jc = JCamera.look_at(origin=[0.0, 0.0, 0.0], target=[0.0, 0.0, 1.0])
+    else:
+        js, ts, jc, _ = scenes
+    o, d = (np.array(x) for x in j_primary_rays(jc, 16, 16))
+    jhit = j_intersect(jnp.asarray(o), jnp.asarray(d), js, backend="xla")
+    thit = intersect(torch.from_numpy(o), torch.from_numpy(d), ts)
+    np.testing.assert_array_equal(thit.hit.numpy(), np.asarray(jhit.hit))
+    assert 10 < int(thit.hit.sum()) < o.shape[0] or which == "box_scene"
+    for f in ("dst", "point", "normal", "albedo", "emission", "smoothness"):
+        np.testing.assert_allclose(getattr(thit, f).numpy(), np.asarray(getattr(jhit, f)),
+                                   rtol=1e-5, atol=1e-5, err_msg=f)
