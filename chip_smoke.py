@@ -10,8 +10,10 @@ every kernel's scene size and under every search knob that picks a kernel,
 then its progressive (checkpointed, resumed), bounce-heatmap, trace and
 loader-test entry points, runs the two measurement tools through their
 entry points, compares a small render on the card with the same render on
-the CPU, and runs the integrator's other modes and the training path (with
-a checkpointed resume). Each phase prints
+the CPU, runs the integrator's other modes and the training path (with
+a checkpointed resume), then the multi-rank layer: a world of one rank over
+NCCL in this process, and two ranks on the one card over gloo in child
+processes of this script (``--parallel-rank``). Each phase prints
 one line per step; any failure raises and the script exits non-zero without
 printing a result.
 
@@ -383,6 +385,33 @@ FD_RUN = dict(width=16, height=16, spp=2, max_bounce=2, eps=1e-2, rtol=2e-2,
               atol=5e-6, probes_per_leaf=8)
 FD_SEED = 20261017
 FD_BAR = 0.9
+
+# Phase 7, the multi-rank layer (raytracingc_tpu_torch/parallel).
+# Run (v), a world of one rank over NCCL in this process: render_sharded by
+# pixels, samples and both equal render bit for bit on run (b)'s scene at
+# PARALLEL (K1); render_sharded(scene_sharding="blocks") on box_scene
+# --tessellate PARALLEL_TESSELLATE (10,240 triangles: K2 on the shard's
+# accel) equals its replicated render bit for bit; one make_train_step
+# step on run (q)'s scene at TRAIN on the one-rank mesh equals fit_scene's
+# single-device step (make_train_step without a mesh): loss and gradients
+# bit for bit. Run (w), PARALLEL_RANKS ranks on this one card over gloo
+# (NCCL refuses two ranks on one card), each a child process of this script
+# (``chip_smoke.py --parallel-rank``): the CLI with --shard pixels and the
+# multi-process flags at PARALLEL writes the single-device CLI's BMP byte
+# for byte with the same traced rays; then, in a world of their own, the
+# block-sharded render at PARALLEL_TESSELLATE (5,120 triangles a rank) is
+# the replicated render's bits, the spp-sharded render (spp dimension 2)
+# equals the mean of the two offset single-device renders bit for bit (a
+# sum of two is order-free), and a 2x1 make_train_step step (every leaf;
+# the accel refreshed) has the single-device step's gradients within
+# PARALLEL_GRAD_REL (relative L2 per leaf: the pixel sum's association
+# differs) and its loss within the same. A child that fails fails the smoke.
+PARALLEL = dict(width=1920, height=1080, spp=2, max_bounce=8)
+PARALLEL_TESSELLATE = 5
+PARALLEL_RANKS = 2
+PARALLEL_GRAD_REL = 1e-5
+PARALLEL_LR = 0.05
+PARALLEL_TIMEOUT = 400
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -1589,6 +1618,311 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
     return out, t_fwd, t_bwd
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper by name; each counts its own launches."""
+    from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu
+    from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
+    from raytracingc_tpu_torch.ops.search_brute import search_brute
+    from raytracingc_tpu_torch.ops.search_packed import search_packed
+    from raytracingc_tpu_torch.ops.search_range import search_range
+    from raytracingc_tpu_torch.ops.search_union import search_union
+    from raytracingc_tpu_torch.ops.search_words import search_words
+    from raytracingc_tpu_torch.tools import smem_probe
+
+    return {"search_brute": search_brute, "search_bitmask": search_bitmask,
+            "search_packed": search_packed, "search_range": search_range,
+            "search_words": search_words, "search_mxu": search_mxu,
+            "search_union": search_union, "smem_probe": smem_probe.smem_probe}
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def _step_grads(scene, cam, target, run, mesh):
+    """One make_train_step SGD step of every leaf of ``scene`` against
+    ``target`` on ``mesh`` (None: one device): ``(loss, {leaf: gradient}
+    on the host)``."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import primary_rays
+    from raytracingc_tpu_torch.parallel import make_train_step
+    from raytracingc_tpu_torch.scene.types import scene_leaves
+
+    w, h = run["width"], run["height"]
+    o, d = primary_rays(cam, w, h)
+    params = {k: t.detach().clone().requires_grad_(True)
+              for k, t in scene_leaves(scene).items()}
+    opt = torch.optim.SGD(list(params.values()), lr=PARALLEL_LR)
+    step = make_train_step(mesh, opt, spp=run["spp"], max_bounce=run["max_bounce"])
+    _, loss = step(scene, params, o, d, torch.arange(w * h, device=o.device), target)
+    return loss, {k: t.grad.cpu() for k, t in params.items()}
+
+
+def _train_target(scene, cam, run):
+    """Run (q)'s scene rendered in production mode, dimmed by 0.9 (so that
+    every pixel's residual is a real one), as ``[R, 3]``."""
+    import torch
+
+    from raytracingc_tpu_torch.render.renderer import render
+
+    with torch.no_grad():
+        img, _ = render(scene, cam, **run)
+    return img.reshape(-1, 3) * 0.9
+
+
+def run_parallel_one_rank(dev, run=PARALLEL, train=TRAIN,
+                          tessellate=PARALLEL_TESSELLATE) -> dict:
+    """Run (v) in this process. Returns ``{label: (seconds, traced rays or
+    loss)}``; raises on a broken identity."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.parallel import (
+        make_mesh,
+        pad_scene_for_blocks,
+        render_sharded,
+    )
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    out = {}
+
+    def timed(label, fn):
+        sync()
+        t = time.time()
+        img, n = fn()
+        sync()
+        out[label] = (time.time() - t, n)
+        return img, n
+
+    cam = Camera.look_at(device=dev)
+    with torch.no_grad():
+        box = scene_from_triangles_txt(BOX_SCENE).to(dev)
+        want, n = timed("render", lambda: render(box, cam, **run))
+        for strategy in ("pixels", "samples", "both"):
+            img, m = timed(f"render_sharded {strategy}", lambda: render_sharded(
+                box, cam, **run, strategy=strategy))
+            if m != n or not _same_bits(img, want):
+                raise AssertionError(f"run v: render_sharded({strategy!r}) is not "
+                                     f"render's bits ({m} against {n} rays)")
+        big = train_scene(dev, tessellate)
+        want, n = timed(f"render --tessellate {tessellate}",
+                        lambda: render(big, cam, **run))
+        img, m = timed("render_sharded blocks", lambda: render_sharded(
+            pad_scene_for_blocks(big, 1), cam, **run, scene_sharding="blocks"))
+        if m != n or not _same_bits(img, want):
+            raise AssertionError(f"run v: the block-sharded render is not the "
+                                 f"replicated render's bits ({m} against {n} rays)")
+    scene = train_scene(dev)
+    target = _train_target(scene, cam, train)
+    t = time.time()
+    loss, grads = _step_grads(scene, cam, target, train, None)
+    out["train step"] = (time.time() - t, loss)
+    t = time.time()
+    mesh_loss, mesh_grads = _step_grads(scene, cam, target, train,
+                                        make_mesh(1, 1, device_type=dev.type))
+    out["train step, one-rank mesh"] = (time.time() - t, mesh_loss)
+    if mesh_loss != loss or not all(_same_bits(mesh_grads[k], g)
+                                    for k, g in grads.items()):
+        raise AssertionError("run v: the one-rank mesh's training step is not "
+                             "fit_scene's single-device step")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cli_flags(device_type: str, run: dict) -> list:
+    return ["--device", device_type, "--triangles", BOX_SCENE, "--profile",
+            "-s", str(run["width"]), str(run["height"]), "--spp", str(run["spp"]),
+            "-b", str(run["max_bounce"])]
+
+
+def parallel_rank(rank: int, cfg: dict) -> int:
+    """One rank of run (w), in a child process: prints one JSON object as
+    its last line (seconds, traced rays, loss, and its kernels' launches in
+    each of its runs: ``{"launches": {run: {kernel: n}}}``); rank 0 writes
+    the CLI's BMP and ``parallel.npz`` into ``cfg["out"]``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.cli import main as cli_main
+    from raytracingc_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        pad_scene_for_blocks,
+        render_sharded,
+    )
+    from raytracingc_tpu_torch.parallel.mesh import rank_device
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+
+    kernels = kernel_counters()
+    for f in kernels.values():
+        f.launches = 0
+    launches = {}
+
+    def mark(label):
+        """Record the launches since the last mark under ``label``."""
+        launches[label] = {k: f.launches for k, f in kernels.items()}
+        for f in kernels.values():
+            f.launches = 0
+
+    device_type, run, train = cfg["device"], cfg["run"], cfg["train"]
+    n = PARALLEL_RANKS
+    out = {"rank": rank}
+    t = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(_cli_flags(device_type, run) + [
+            "--shard", "pixels", "--coordinator", f"127.0.0.1:{cfg['ports'][0]}",
+            "--num-processes", str(n), "--process-id", str(rank),
+            "--dist-backend", "gloo", "-o", os.path.join(cfg["out"], "px.bmp")])
+    prof = re.search(r"render=([0-9.]+)s rays=(\d+)", buf.getvalue())
+    if rc != 0 or (rank == 0) != (prof is not None):
+        raise AssertionError(f"rank {rank}: cli exit code {rc}\n{buf.getvalue()}")
+    out["cli"] = [float(prof.group(1)), int(prof.group(2))] if prof else None
+    mark("cli")
+
+    initialize_distributed(f"127.0.0.1:{cfg['ports'][1]}", n, rank, "gloo")
+    dev = rank_device(device_type)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    cam = Camera.look_at(device=dev)
+    results = {}
+
+    def timed(label, fn):
+        sync()
+        t = time.time()
+        value, count = fn()
+        sync()
+        out[label] = [time.time() - t, count]
+        results[label] = value.cpu().numpy() if torch.is_tensor(value) else value
+        mark(label)
+
+    with torch.no_grad():
+        # The host's scene: each rank copies its slice to the card.
+        big = train_scene(torch.device("cpu"), cfg["tessellate"])
+        timed("blocks", lambda: render_sharded(
+            pad_scene_for_blocks(big, n), cam, **run,
+            mesh=make_mesh(n, 1, device_type=device_type), scene_sharding="blocks"))
+        timed("samples", lambda: render_sharded(
+            scene_from_triangles_txt(BOX_SCENE), cam, **run,
+            mesh=make_mesh(1, n, device_type=device_type)))
+    scene = train_scene(dev)
+    target = _train_target(scene, cam, train)
+    mesh = make_mesh(n, 1, device_type=device_type)
+    _step_grads(scene, cam, target, train, mesh)  # warm: autograd's first call
+    t = time.time()
+    loss, grads = _step_grads(scene, cam, target, train, mesh)
+    out["train"] = [time.time() - t, loss]
+    mark("train")
+    if rank == 0:
+        np.savez(os.path.join(cfg["out"], "parallel.npz"), **results,
+                 **{f"grad{k}": g.numpy() for k, g in grads.items()})
+    dist.destroy_process_group()
+    out["launches"] = launches
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_parallel_ranks(dev, tmp, cli_main, run=PARALLEL, train=TRAIN,
+                       tessellate=PARALLEL_TESSELLATE) -> dict:
+    """Run (w): PARALLEL_RANKS child processes of this script on ``dev``'s
+    card (gloo), held against this process's single-device runs. Returns
+    ``{"ranks": [each rank's JSON], label: (seconds, traced rays)}``."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+    from raytracingc_tpu_torch.scene.types import scene_leaves
+
+    cfg = dict(ports=[_free_port(), _free_port()], out=tmp, run=run, train=train,
+               tessellate=tessellate, device=dev.type)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+         json.dumps(cfg)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(PARALLEL_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"run w: rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    ranks = [json.loads(log.strip().splitlines()[-1]) for log in logs]
+    out = {"ranks": ranks}
+
+    one = os.path.join(tmp, "one.bmp")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(_cli_flags(dev.type, run) + ["-o", one])
+    prof = re.search(r"render=([0-9.]+)s rays=(\d+)", buf.getvalue())
+    if rc != 0 or prof is None:
+        raise AssertionError(f"run w: single-device cli exit code {rc}\n{buf.getvalue()}")
+    out["cli, one device"] = (float(prof.group(1)), int(prof.group(2)))
+    with open(one, "rb") as f, open(os.path.join(tmp, "px.bmp"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("run w: the 2-rank --shard pixels BMP differs from "
+                                 "the single-device CLI's")
+    if ranks[0]["cli"][1] != out["cli, one device"][1]:
+        raise AssertionError(f"run w: --shard pixels traced {ranks[0]['cli'][1]} "
+                             f"rays, one device {out['cli, one device'][1]}")
+
+    got = np.load(os.path.join(tmp, "parallel.npz"))
+    cam = Camera.look_at(device=dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    with torch.no_grad():
+        sync()
+        t = time.time()
+        want, n = render(train_scene(dev, tessellate), cam, **run)
+        sync()
+        out["blocks, replicated"] = (time.time() - t, n)
+        if ranks[0]["blocks"][1] != n or not _same_bits(
+                torch.from_numpy(got["blocks"]), want.cpu()):
+            raise AssertionError("run w: the 2-rank block-sharded render is not the "
+                                 "replicated render's bits")
+        box = scene_from_triangles_txt(BOX_SCENE).to(dev)
+        per = run["spp"] // PARALLEL_RANKS
+        parts = [render(box, cam, **{**run, "spp": per}, sample_offset=k * per)
+                 for k in range(PARALLEL_RANKS)]
+        want = sum(img for img, _ in parts) / float(PARALLEL_RANKS)
+        if ranks[0]["samples"][1] != sum(c for _, c in parts) or not _same_bits(
+                torch.from_numpy(got["samples"]), want.cpu()):
+            raise AssertionError("run w: the spp-sharded render is not the mean of "
+                                 "the offset renders")
+    scene = train_scene(dev)
+    loss, grads = _step_grads(scene, cam, _train_target(scene, cam, train), train,
+                              None)
+    rel = {k: float((torch.from_numpy(got[f"grad{k}"]) - g).norm() / g.norm())
+           for k, g in grads.items() if float(g.norm()) > 0}
+    loss_rel = abs(ranks[0]["train"][1] - loss) / loss
+    worst = max(rel, key=rel.get)
+    if rel[worst] > PARALLEL_GRAD_REL or loss_rel > PARALLEL_GRAD_REL:
+        raise AssertionError(f"run w: the 2x1 step's gradients against one "
+                             f"device's: {rel}, loss {loss_rel:.3g}")
+    out["train"] = (worst, rel[worst], loss_rel, len(scene_leaves(scene)))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1752,10 +2086,7 @@ def main() -> int:
     # 4. Main path: the CLI in default mode and under the knobs that pick a
     # kernel, then the two tools, on the card. Every kernel's count is set
     # to 0 just before each run and read just after it.
-    kernels = {"search_brute": search_brute, "search_bitmask": search_bitmask,
-               "search_packed": search_packed, "search_range": search_range,
-               "search_words": search_words, "search_mxu": search_mxu,
-               "search_union": search_union, "smem_probe": smem_probe.smem_probe}
+    kernels = kernel_counters()
     total_launches = dict.fromkeys(kernels, 0)
     traced, means = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1959,6 +2290,72 @@ def main() -> int:
           f"--tessellate {TRAIN_TESSELLATE} untied, {FD_RUN}: " + ", ".join(
               f"{k} {v['pass']}/{v['total']}" for k, v in fd.items() if k != "pass_rate"))
 
+    # 7. The multi-rank layer: run (v) in this process, a world of one rank
+    # over NCCL; run (w) in PARALLEL_RANKS child processes on this card over
+    # gloo. Each is counted like the main runs: K1 (box_scene) and K2 (the
+    # tessellated scenes and the training step), in this process and, for
+    # (w), in the children (each prints its counts).
+    import torch.distributed as dist
+
+    def parallel_launches(label, launched):
+        for k, v in launched.items():
+            total_launches[k] += v
+        others = {k: v for k, v in launched.items()
+                  if v and k not in ("search_brute", "search_bitmask")}
+        if launched["search_brute"] < 1 or launched["search_bitmask"] < 1 or others:
+            raise AssertionError(f"run {label}: launches {launched}")
+        return launched
+
+    t = time.time()
+    for fn in kernels.values():
+        fn.launches = 0
+    one_rank = run_parallel_one_rank(dev)
+    launched = parallel_launches("v", {k: fn.launches for k, fn in kernels.items()})
+    phase("parallel", t, f"v: a world of one rank ({dist.get_backend()}) on "
+          f"{smi}, {PARALLEL}: render_sharded pixels / samples / both == render "
+          f"bitwise (K1), blocks at --tessellate {PARALLEL_TESSELLATE} == "
+          f"replicated bitwise (K2), the one-rank mesh's train step at {TRAIN} == "
+          f"fit_scene's step bitwise; " + ", ".join(
+              f"{k} {sec:.3f}s ({v:.6g} {'loss' if 'train' in k else 'rays'})"
+              for k, (sec, v) in one_rank.items())
+          + f"; launches {({k: v for k, v in launched.items() if v})}")
+    dist.destroy_process_group()
+
+    # Each child's own runs launched their kernels: K1 in the CLI's and the
+    # samples render (box_scene), K2 in the block-sharded render and the
+    # train step (this process's replicated twins count apart).
+    t = time.time()
+    for fn in kernels.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_parallel_ranks(dev, tmp, cli_main)
+    launched = {k: fn.launches for k, fn in kernels.items()}
+    for r in ranks["ranks"]:
+        for label, want in (("cli", "search_brute"), ("samples", "search_brute"),
+                            ("blocks", "search_bitmask"),
+                            ("train", "search_bitmask")):
+            if r["launches"][label][want] < 1:
+                raise AssertionError(f"run w, rank {r['rank']}: its {label} run "
+                                     f"launched no {want}: {r['launches'][label]}")
+        for per_run in r["launches"].values():
+            for k, v in per_run.items():
+                launched[k] += v
+    parallel_launches("w", launched)
+    worst, rel, loss_rel, n_leaves = ranks["train"]
+    phase("parallel", t, f"w: {PARALLEL_RANKS} ranks over gloo on {smi}, "
+          f"{PARALLEL}: --shard pixels BMP == one device's, same rays; blocks at "
+          f"--tessellate {PARALLEL_TESSELLATE} == replicated bitwise; samples == "
+          f"mean of the offset renders bitwise; the 2x1 train step's gradients "
+          f"within {PARALLEL_GRAD_REL} of one device's ({n_leaves} leaves, worst "
+          f"relative L2 {rel:.3g} on {worst}, loss {loss_rel:.3g}); " + "; ".join(
+              f"rank {r['rank']}: " + ", ".join(
+                  f"{k} {v[0]:.3f}s ({v[1]:.6g})" for k, v in r.items()
+                  if isinstance(v, list)) for r in ranks["ranks"])
+          + "; this process: " + ", ".join(
+              f"{k} {sec:.3f}s ({n} rays)" for k, v in ranks.items()
+              if k not in ("ranks", "train") for sec, n in (v,))
+          + f"; launches {({k: v for k, v in launched.items() if v})}")
+
     # The kernel line's times are those at the main path's shapes: R =
     # TIMED_RAYS with box_scene at 640 (brute; mxu, split3, as in run (k)),
     # 10,240 (bitmask; union, the union tool's scene) and 163,840 (packed,
@@ -2014,4 +2411,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), json.loads(sys.argv[3])))
     sys.exit(main())

@@ -10,9 +10,15 @@ carry the block-AABB accel, rebuilt after ``--tessellate``.
 ``--debug-bounces`` the bounce-count heatmap, ``--trace DIR`` writes a
 torch.profiler Chrome trace of the run into DIR.
 
-The multi-device flags (``--shard``, ``--scene-sharding``, the multi-host
-ones) are not ported yet: they raise ``SystemExit`` naming the ROADMAP item
-that will port them; none is silently ignored.
+``--shard pixels|samples`` renders across the ranks of a
+``torch.distributed`` world (``raytracingc_tpu_torch.parallel``), with
+``--scene-sharding blocks`` the triangle buffers block-sharded over them. A
+world of several processes: start one CLI process per rank with the same
+flags plus ``--coordinator HOST:PORT --num-processes N --process-id I``;
+``--dist-backend`` (the port's flag) picks the collectives' backend, NCCL on
+cards by default and gloo on the CPU (several ranks on one card need gloo:
+NCCL refuses them). Rank 0 alone writes the image and prints the summary.
+Without those flags a sharded run is a world of one rank.
 """
 
 from __future__ import annotations
@@ -63,9 +69,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="midpoint-subdivide the scene 4^LEVELS-fold before "
                    "rendering (same image, more triangles)")
     p.add_argument("--shard", choices=["none", "pixels", "samples"], default="none",
-                   help="multi-device sharding strategy (not ported yet)")
+                   help="shard the render over the world's ranks by pixels or "
+                   "by samples")
     p.add_argument("--scene-sharding", choices=["replicated", "blocks"],
-                   default="replicated", help="with --shard (not ported yet)")
+                   default="replicated",
+                   help="with --shard: replicate the triangle buffers on every "
+                   "rank (default) or block-shard them 1/n per pixel rank "
+                   "(bit-matched winners)")
     p.add_argument("--pixel-chunk", type=int, default=None,
                    help="pixels traced per step (memory bound)")
     p.add_argument("--profile", action="store_true", help="print timing breakdown")
@@ -79,29 +89,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-spp", type=int, default=64,
                    help="samples per checkpoint batch (with --checkpoint)")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host: host:port of process 0 (not ported yet)")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
-    # The port's own flag:
+                   help="multi-process: host:port of process 0's store (give "
+                   "all three of these flags)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process: ranks in the world")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process: this process's rank; rank 0 alone "
+                   "writes the image and prints the summary")
+    # The port's own flags:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where to render; 'cuda' with no card raises")
+                   help="where to render; 'cuda' with no card raises (each "
+                   "rank takes card local_rank %% device_count)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="collective backend of a multi-process world (default "
+                   "nccl with --device cuda, gloo with --device cpu; several "
+                   "ranks on one card need gloo)")
     return p
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    """Raise ``SystemExit`` for any flag whose feature is not ported yet."""
-    unported = [
-        (args.shard != "none", "--shard", "ROADMAP Queue 1 item 10 (parallel)"),
-        (args.scene_sharding != "replicated", "--scene-sharding blocks",
-         "ROADMAP Queue 1 item 10 (parallel)"),
-        (args.coordinator is not None or args.num_processes is not None
-         or args.process_id is not None,
-         "--coordinator/--num-processes/--process-id",
-         "ROADMAP Queue 1 item 10 (parallel)"),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise SystemExit(f"{flag}: not ported to raytracingc_tpu_torch yet ({item})")
+def _world_flags(args: argparse.Namespace) -> bool:
+    """Whether the multi-process flags ask for a world; raises ``SystemExit``
+    unless they are all given or all absent."""
+    given = [args.coordinator is not None, args.num_processes is not None,
+             args.process_id is not None]
+    if any(given) and not all(given):
+        raise SystemExit("--coordinator, --num-processes and --process-id go "
+                         "together (torch.distributed discovers no world)")
+    if args.dist_backend is not None and not all(given):
+        raise SystemExit("--dist-backend needs --coordinator, --num-processes "
+                         "and --process-id")
+    return all(given)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -113,11 +130,9 @@ def main(argv: list[str] | None = None) -> int:
         # block sharding.
         raise SystemExit(
             "--scene-sharding blocks requires --shard pixels|samples and "
-            "is not supported with --checkpoint/--debug-bounces (and "
-            "multi-device rendering is not ported to raytracingc_tpu_torch "
-            "yet: ROADMAP Queue 1 item 10, parallel)"
+            "is not supported with --checkpoint/--debug-bounces"
         )
-    _refuse_unported(args)
+    world = _world_flags(args)
 
     import torch
 
@@ -128,6 +143,22 @@ def main(argv: list[str] | None = None) -> int:
     if args.device == "cpu" and args.backend == "pallas":
         raise SystemExit("--backend pallas runs the CUDA kernel: it needs --device cuda")
     device = torch.device(args.device)
+    if world:
+        import torch.distributed as dist
+
+        from raytracingc_tpu_torch.parallel.mesh import (
+            default_backend,
+            initialize_distributed,
+            rank_device,
+        )
+
+        try:
+            initialize_distributed(args.coordinator, args.num_processes,
+                                   args.process_id,
+                                   args.dist_backend or default_backend(args.device))
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        device = rank_device(args.device)
 
     if args.trace:
         start_trace(args.trace)
@@ -137,11 +168,14 @@ def main(argv: list[str] | None = None) -> int:
         if args.trace:
             path = stop_trace()
             print(f"[trace] profile written to {path}")
+        if world and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 
 def _run(args: argparse.Namespace, device) -> None:
     import numpy as np
+    import torch.distributed as dist
 
     from raytracingc_tpu_torch.camera import Camera
     from raytracingc_tpu_torch.render.image import tonemap_to_bytes, write_image
@@ -173,7 +207,9 @@ def _run(args: argparse.Namespace, device) -> None:
         scene = dataclasses.replace(
             scene, triangles=tris, n_triangles=n_live, accel=None
         ).with_accel()
-    scene = scene.to(device)
+    if args.scene_sharding == "replicated":
+        # A block-sharded render takes each rank's slice from the host.
+        scene = scene.to(device)
     t_load = time.time() - t0
     print(f"Scene: {scene.n_triangles} triangles, {scene.n_spheres} spheres "
           f"(loaded in {t_load:.2f}s)")
@@ -181,6 +217,7 @@ def _run(args: argparse.Namespace, device) -> None:
     cam = Camera.look_at(origin=args.pos, target=args.track, fov=args.fov,
                          device=device)
     width, height = args.size
+    shard = None if args.shard == "none" else args.shard
 
     t1 = time.time()
     if args.debug_bounces:
@@ -189,20 +226,42 @@ def _run(args: argparse.Namespace, device) -> None:
                               backend=args.backend)
         count = width * height
     elif args.checkpoint:
+        # --shard composes with --checkpoint: each batch renders across the
+        # ranks and rank 0 checkpoints the sum between batches.
         linear, count = render_progressive(
             scene, cam, width, height, spp=args.spp,
             max_bounce=args.max_bounce, seed=args.seed, backend=args.backend,
             batch_spp=args.batch_spp, checkpoint_path=args.checkpoint,
+            shard_strategy=shard, device=device,
         )
-    else:
+    elif shard is None:
         linear, count = render(
             scene, cam, width, height, spp=args.spp, max_bounce=args.max_bounce,
             seed=args.seed, backend=args.backend, pixel_chunk=args.pixel_chunk,
+        )
+    else:
+        from raytracingc_tpu_torch.parallel.sharded import (
+            mesh_for_strategy,
+            pad_scene_for_blocks,
+            render_sharded,
+            strategy_spp_dim,
+        )
+
+        mesh = mesh_for_strategy(shard, device_type=device.type)
+        if args.scene_sharding == "blocks":
+            n = mesh.size()
+            scene = pad_scene_for_blocks(scene, n // strategy_spp_dim(shard, n))
+        linear, count = render_sharded(
+            scene, cam, width, height, spp=args.spp, max_bounce=args.max_bounce,
+            seed=args.seed, backend=args.backend, mesh=mesh,
+            scene_sharding=args.scene_sharding, pixel_chunk=args.pixel_chunk,
         )
     linear = linear.cpu().numpy()  # waits for the device
     t_render = time.time() - t1
     if not np.isfinite(linear).all():
         raise RuntimeError("the render produced non-finite radiance")
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return  # every rank holds the whole image; rank 0 writes it
 
     write_image(args.output, tonemap_to_bytes(linear))
     rays = float(count)

@@ -10,7 +10,8 @@ the card's kernels under ``torch.no_grad``.
 
 ``fit_scene(checkpoint_path=)`` snapshots the scene (with its accel) and
 the optimizer's ``state_dict()`` through ``utils/checkpoint.py`` and resumes
-from them. Not ported: ``mesh=`` (ROADMAP Queue 1 item 10, parallel) raises.
+from them. Each step of ``fit_scene`` is ``parallel.sharded.make_train_step``'s,
+on one device or, with ``mesh=``, across the mesh's ranks.
 """
 
 from __future__ import annotations
@@ -21,9 +22,12 @@ from collections.abc import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raytracingc_tpu_torch.camera import Camera, look_at_basis, primary_rays
-from raytracingc_tpu_torch.ops.accel import build_accel, refresh_accel
+from raytracingc_tpu_torch.ops.accel import build_accel
+from raytracingc_tpu_torch.parallel.mesh import mesh_device
+from raytracingc_tpu_torch.parallel.sharded import make_train_step
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
 from raytracingc_tpu_torch.scene.types import Scene, scene_leaves, with_leaves
 from raytracingc_tpu_torch.utils.checkpoint import load_pytree, save_pytree
@@ -165,12 +169,16 @@ def fit_scene(
     restores culling quality. Material-only training keeps the accel as it
     is. The returned scene carries an accel rebuilt for the fitted geometry
     (geometry trained) or the original one.
+
+    ``mesh`` (a ``parallel.mesh.make_mesh`` mesh; every rank calls
+    ``fit_scene`` with the same arguments) shards each step's rays and
+    samples over the ranks (``make_train_step``); each rank trains its
+    replica on its own device (``parallel.mesh.rank_device``), and rank 0
+    alone writes checkpoints and logs.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_scene(mesh=...): the sharded train step is not ported "
-            "(ROADMAP Queue 1 item 10, parallel)")
-    dev = scene.device
+    dev = scene.device if mesh is None else mesh_device(mesh)
+    scene = scene.to(dev)
+    leader = mesh is None or dist.get_rank() == 0
     height, width = int(target.shape[0]), int(target.shape[1])
     tgt = target.reshape(-1, 3).to(dev)
     origins, dirs = primary_rays(camera.to(dev), width, height)
@@ -180,15 +188,15 @@ def fit_scene(
     accel = scene.accel
     can_refresh = (geometry_trained and accel is not None
                    and accel.perm_of_orig is not None)
-    # A geometry-trained scene whose accel cannot follow the vertices (a
-    # trivial accel) runs without one.
-    step_accel = None if geometry_trained and not can_refresh else accel
     trains = (lambda k: True) if trainable is None or param_filter is not None \
         else (lambda k: any(s in k for s in trainable))
     params = {k: t.detach().clone().requires_grad_(trains(k))
               for k, t in scene_leaves(scene).items()}
     opt = (optimizer or (lambda ps: _adam(ps, learning_rate)))(
         [t for t in params.values() if t.requires_grad])
+    step = make_train_step(mesh, opt, spp=spp, max_bounce=max_bounce,
+                           backend=backend, seed=seed, param_filter=param_filter,
+                           geometry_trainable=geometry_trained)
 
     def snapshot():
         """What a checkpoint holds: the current scene with the accel the
@@ -208,41 +216,27 @@ def fit_scene(
         start = (saved or 0) + 1
 
     losses: list[float] = []
+    # The step refreshes a host-built accel against the current triangles
+    # and returns it refreshed against the updated ones, which the next step
+    # takes as it is; a geometry-trained scene whose accel cannot follow the
+    # vertices (a trivial accel) runs without one.
+    current = dataclasses.replace(
+        scene, accel=None if geometry_trained and not can_refresh else accel)
     for i in range(start, steps):
-        s = with_leaves(scene, params)
-        if can_refresh:
-            with torch.no_grad():
-                step_accel = refresh_accel(accel, s.triangles, scene.n_triangles)
-        s = dataclasses.replace(s, accel=step_accel)
-        radiance, _ = trace_accumulate(origins, dirs, s, ray_ids, seed=seed,
-                                       spp=spp, max_bounce=max_bounce,
-                                       backend=backend)
-        loss = ((radiance - tgt) ** 2).mean()
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        # Every leaf gets a gradient, zero where the loss does not reach it
-        # (as jax.grad gives), so the optimizer's state covers every trained
-        # leaf from the first step on: a checkpoint's structure never changes.
-        # (param_filter trains every leaf, so it sees them all.)
-        grads = {k: t.grad if t.grad is not None else torch.zeros_like(t)
-                 for k, t in params.items() if t.requires_grad}
-        if param_filter is not None:
-            grads = param_filter(grads)
-        for k, t in params.items():
-            if t.requires_grad:
-                t.grad = grads[k]
-        opt.step()
-        losses.append(loss.item())
+        current, loss = step(current, params, origins, dirs, ray_ids, tgt)
+        losses.append(loss)
         if (can_refresh and accel_rebuild_every
                 and (i + 1) % accel_rebuild_every == 0 and (i + 1) < steps):
             with torch.no_grad():
                 accel = build_accel(with_leaves(scene, params).triangles,
                                     scene.n_triangles)
-        if log_every and i % log_every == 0:
+            current = dataclasses.replace(current, accel=accel)
+        if leader and log_every and i % log_every == 0:
             print(f"[fit_scene] step {i}: loss {losses[-1]:.6g}")
-        if checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0:
+        if (leader and checkpoint_path and checkpoint_every
+                and (i + 1) % checkpoint_every == 0):
             save_pytree(checkpoint_path, snapshot(), step=i)
-    if checkpoint_path and steps > start:
+    if leader and checkpoint_path and steps > start:
         save_pytree(checkpoint_path, snapshot(), step=steps - 1)
     _check_finite(losses, "fit_scene")
     fitted = with_leaves(scene, {k: t.detach() for k, t in params.items()})

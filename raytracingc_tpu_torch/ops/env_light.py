@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracingc_tpu_torch.rng import lanewise
 from raytracingc_tpu_torch.scene.types import EnvParams
 
 
@@ -23,19 +24,10 @@ def smoothstep(lo: float, hi: float, x: torch.Tensor) -> torch.Tensor:
     return t * t * (3.0 - 2.0 * t)
 
 
-# torch's CPU pow rounds differently in its vectorised loop and in the
-# scalar loop over a tensor's last few elements, so a lane's value would
-# depend on its position; on the CPU every lane goes through the vector loop.
-_CPU_VEC_PAD = 64
-
-
 def _pow(x: torch.Tensor, p) -> torch.Tensor:
-    """``x ** p`` whose value per element does not depend on its position."""
-    if x.device.type != "cpu":
-        return x**p
-    flat = x.reshape(-1)
-    pad = -flat.numel() % _CPU_VEC_PAD
-    return torch.cat([flat, flat.new_ones(pad)]).pow(p)[:flat.numel()].reshape(x.shape)
+    """``x ** p`` whose value per element does not depend on its position
+    (torch's CPU pow rounds differently in its vector and scalar loops)."""
+    return lanewise(lambda t: t.pow(p), x)
 
 
 def _safe_pow(x: torch.Tensor, p) -> torch.Tensor:

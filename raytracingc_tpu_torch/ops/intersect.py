@@ -10,6 +10,17 @@ point, normal and material with the same formulas.
 Tie rules are the C scan order: the lowest index wins among equal
 distances, and a sphere beats a triangle at equal distance (spheres are
 scanned first and a triangle replaces only on a strictly smaller distance).
+
+A block-sharded scene (``Scene.shard``: each rank of a process group holds a
+contiguous slice of the triangle buffers) searches its own slice on the
+accel-table routes, whose ``orig_idx`` are global indices (a trivial accel's
+and the plain scan's are local and are made global), and merges the ranks'
+winners with one ``all_reduce(MIN)`` over the 64-bit ``(bits(dst) << 32 |
+idx)`` keys that the item kernels merge through: the same (distance, lowest
+index) rule, so the merged winner equals a whole-scene search bit for bit.
+The resolve gathers the winner's row on the rank that owns it, zeros on the
+others, and sums across the group (``raytracingc_tpu/ops/intersect.py``'s
+masked ``psum``).
 """
 
 from __future__ import annotations
@@ -18,8 +29,10 @@ import dataclasses
 import os
 
 import torch
+import torch.distributed as dist
 
 from raytracingc_tpu_torch.ops.search import search_triangles
+from raytracingc_tpu_torch.ops.search_range import MISS_KEY, pack_keys, unpack_keys
 from raytracingc_tpu_torch.scene.types import EPSILON, MISS_DST, Scene
 
 
@@ -118,12 +131,25 @@ def nearest_hit(o, d, scene: Scene, backend: str = "auto", alive=None) -> HitRef
     ``alive``: optional bool ``[R]``; a dead lane may get a miss or its real
     hit, depending on the kernel the search routes to (see
     :func:`ops.search.search_triangles`), so callers never read dead lanes.
+    A block-sharded scene (``scene.shard``) merges its ranks' winners (module
+    docstring); every rank of the group must call this with the same rays.
     """
     r = o.shape[0]
+    shard = scene.shard
+    n_live = scene.n_triangles
+    if shard is not None:  # the live rows of this rank's slice
+        lo = shard.rank * scene.triangles.count
+        n_live = min(max(n_live - lo, 0), scene.triangles.count)
     tri_dst, tri_idx = search_triangles(
-        o, d, scene.triangles, scene.n_triangles, alive=alive, backend=backend,
-        accel=scene.accel,
+        o, d, scene.triangles, n_live, alive=alive, backend=backend,
+        accel=scene.accel, packet_only=shard is not None,
     )
+    if shard is not None:
+        if scene.accel is None or backend == "xla":  # local indices
+            tri_idx = torch.where(tri_idx >= 0, tri_idx + lo, tri_idx)
+        keys = torch.where(tri_idx >= 0, pack_keys(tri_dst, tri_idx), MISS_KEY)
+        dist.all_reduce(keys, op=dist.ReduceOp.MIN, group=shard.group)
+        tri_dst, tri_idx = unpack_keys(keys)
     if scene.n_spheres > 0:
         sph_dst, sph_idx = _search_spheres(o, d, scene.spheres)
     else:
@@ -162,7 +188,8 @@ def with_perm_resolve(scene: Scene) -> Scene:
     gives the same bits. ``RTC_RESOLVE``: ``auto`` (default) attaches the
     table from :data:`PERM_RESOLVE_MIN_T` padded triangles, ``perm`` always,
     ``orig`` never. No-op without an accel carrying ``perm_of_orig``, at
-    <= 256 triangles, or when a table is already attached.
+    <= 256 triangles, for a block-sharded scene (its resolve gathers from its
+    own slice) or when a table is already attached.
     """
     mode = os.environ.get("RTC_RESOLVE", "auto")
     if mode not in ("auto", "perm", "orig"):
@@ -175,6 +202,7 @@ def with_perm_resolve(scene: Scene) -> Scene:
         or accel is None
         or accel.perm_of_orig is None
         or count <= 256
+        or scene.shard is not None
         or scene.resolve_perm is not None
     ):
         return scene
@@ -184,12 +212,31 @@ def with_perm_resolve(scene: Scene) -> Scene:
     return dataclasses.replace(scene, resolve_perm=rows)
 
 
+def _sharded_rows(scene: Scene, tri_sel, tri_idx) -> torch.Tensor:
+    """The winners' ``(R, 17)`` rows of a block-sharded scene: each rank
+    gathers the rows of the winners in its slice, zeros the others', and the
+    group sums them (a row plus zeros: the replicated gather's values)."""
+    t = scene.triangles.count
+    lo = scene.shard.rank * t
+    mine = tri_sel & (tri_idx >= lo) & (tri_idx < lo + t)
+    rows = torch.where(mine[:, None],
+                       _tri_table(scene.triangles)[torch.where(mine, tri_idx - lo, 0)],
+                       0.0)
+    if rows.requires_grad:
+        raise ValueError("a block-sharded scene is forward-only: its resolve "
+                         "sums across ranks outside autograd")
+    dist.all_reduce(rows, group=scene.shard.group)
+    return rows
+
+
 def resolve_hit(o, d, ref: HitRef, scene: Scene) -> Hit:
     """Recompute (dst, point, normal, material) for the winning primitive.
 
     Lanes that did not win a triangle gather triangle row 0 and lanes that
     did not win a sphere gather sphere row 0; both branches stay finite and
-    the unselected one is discarded.
+    the unselected one is discarded. A block-sharded scene gathers on the
+    rank that owns the winner and sums across the group (module docstring);
+    it is forward-only.
     """
     tri_sel = ref.hit & ref.is_tri
     sph_sel = ref.hit & ~ref.is_tri
@@ -200,6 +247,8 @@ def resolve_hit(o, d, ref: HitRef, scene: Scene) -> Hit:
     if scene.resolve_perm is not None:  # see with_perm_resolve
         slot = scene.accel.perm_of_orig[tri_idx.clamp_max(scene.triangles.count - 1)]
         tri_rows = scene.resolve_perm[slot.long()]
+    elif scene.shard is not None:
+        tri_rows = _sharded_rows(scene, tri_sel, tri_idx)
     else:
         tri_rows = _tri_table(scene.triangles)[tri_idx]  # (R, 17)
     a = tri_rows[:, 0:3]

@@ -206,7 +206,8 @@ def route(n_live: int, n_blocks: int, knobs: Knobs) -> Route:
 
 
 def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
-                     backend: str = "auto", accel: TriangleAccel | None = None):
+                     backend: str = "auto", accel: TriangleAccel | None = None,
+                     packet_only: bool = False):
     """Closest hit among the scene's triangles: ``(dst [R], idx [R])``,
     ``idx`` in original order, -1 on a miss.
 
@@ -220,10 +221,18 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
     bits from live lanes only and do not mask: a dead lane in a packet with
     a live lane gets its real hit, a packet of dead lanes misses (as in the
     JAX package).
+
+    ``packet_only``: take the accel-table routes whatever ``RTC_KERNEL`` and
+    ``n_live`` say (no brute, no mxu), as the JAX package's
+    ``variant="packet"`` does for a block-sharded scene: those routes read
+    ``accel.orig_idx``, which a shard's accel carries as global indices.
+    The other knobs apply as always.
     """
     if backend not in ("auto", "xla", "pallas"):
         raise ValueError(f"backend={backend!r}: expected auto, xla or pallas")
     knobs = Knobs.read()
+    if packet_only:
+        knobs = dataclasses.replace(knobs, kernel="packet")
     o, d = o.contiguous(), d.contiguous()
     if backend == "xla":
         tri = pack_triangles(tris, n_live)

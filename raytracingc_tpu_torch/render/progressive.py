@@ -18,6 +18,10 @@ samples done. The port keeps ``count`` exact as an int64 where the JAX
 package sums it in float32; the leaf order is the same, so either
 package's checkpoint loads in the other (the count's value is exact in
 both while it is below 2**24).
+
+With ``mesh`` or ``shard_strategy`` each batch renders across the ranks
+through ``parallel.sharded.render_sharded`` (every rank holds the whole
+image), and rank 0 alone writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -26,8 +30,11 @@ import os
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from raytracingc_tpu_torch.camera import Camera
+from raytracingc_tpu_torch.parallel.mesh import mesh_device, mesh_shape
+from raytracingc_tpu_torch.parallel.sharded import mesh_for_strategy, render_sharded
 from raytracingc_tpu_torch.render.renderer import render
 from raytracingc_tpu_torch.scene.types import Scene
 from raytracingc_tpu_torch.utils.checkpoint import load_pytree, save_pytree
@@ -69,16 +76,25 @@ def render_progressive(
     ``on_batch(done, total, partial_image)`` runs after each batch (progress
     bars, previews). A final partial batch that ``sample_group`` does not
     divide runs ungrouped. ``device`` defaults to the scene's; the scene and
-    camera are moved there. ``mesh`` and ``shard_strategy`` (multi-device
-    batches) raise ``NotImplementedError``.
+    camera are moved there.
+
+    ``mesh`` (a ``parallel.mesh.make_mesh`` mesh) or ``shard_strategy``
+    (``"pixels"``, ``"samples"`` or ``"both"``: a mesh of the world's ranks
+    on ``device``'s type, built once) renders each batch across the ranks,
+    each rank on its own device (``parallel.mesh.rank_device``); with a
+    ``spp`` dimension over 1 every batch, the final partial one and those
+    after a resume included, must divide by it, which is checked before the
+    first batch.
     """
-    if mesh is not None or shard_strategy is not None:
-        raise NotImplementedError(
-            "render_progressive(mesh=/shard_strategy=): multi-device batches "
-            "are not ported (ROADMAP Queue 1 item 10, parallel)")
     if batch_spp < 1:
         raise ValueError(f"batch_spp must be >= 1, got {batch_spp}")
     device = torch.device(device) if device is not None else scene.device
+    sharded = mesh is not None or shard_strategy is not None
+    if sharded:
+        if mesh is None:
+            mesh = mesh_for_strategy(shard_strategy, device_type=device.type)
+        spp_dim = mesh_shape(mesh)[1]
+        device = mesh_device(mesh)
     scene, camera = scene.to(device), camera.to(device)
 
     acc = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
@@ -90,20 +106,35 @@ def render_progressive(
         if done > spp:
             raise ValueError(f"{checkpoint_path} holds {done} samples, more "
                              f"than spp={spp}")
+    if sharded and spp_dim > 1:
+        # The batches this loop will run, from the resume offset on.
+        bad = sorted({min(batch_spp, spp - d) for d in range(done, spp, batch_spp)
+                      if min(batch_spp, spp - d) % spp_dim})
+        if bad:
+            raise ValueError(
+                f"samples sharding over {spp_dim} ranks needs every batch "
+                f"divisible by {spp_dim}: got spp={spp}, batch_spp={batch_spp}, "
+                f"resume offset {done} (offending batch sizes {bad}). Pick "
+                f"batch_spp a multiple of {spp_dim} with spp % batch_spp also "
+                f"a multiple, or shard by pixels.")
+    writes = checkpoint_path and (not sharded or dist.get_rank() == 0)
 
     while done < spp:
         this = min(batch_spp, spp - done)
-        img, c = render(
-            scene, camera, width, height, spp=this, max_bounce=max_bounce,
-            seed=seed, backend=backend, sample_offset=done,
-            # The final partial batch may not divide the group: it runs
-            # ungrouped rather than erroring.
-            sample_group=sample_group if this % _sg_int(sample_group) == 0 else 1,
-        )
+        kw = dict(spp=this, max_bounce=max_bounce, seed=seed, backend=backend,
+                  sample_offset=done,
+                  # The final partial batch may not divide the group: it runs
+                  # ungrouped rather than erroring.
+                  sample_group=(sample_group if this % _sg_int(sample_group) == 0
+                                else 1))
+        if sharded:
+            img, c = render_sharded(scene, camera, width, height, mesh=mesh, **kw)
+        else:
+            img, c = render(scene, camera, width, height, **kw)
         acc = acc + img * float(this)  # de-average back to a sum
         count += c
         done += this
-        if checkpoint_path:
+        if writes:
             save_pytree(checkpoint_path,
                         (acc, torch.tensor(count, dtype=torch.int64)), step=done)
         if on_batch is not None:

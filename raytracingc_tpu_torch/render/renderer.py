@@ -3,8 +3,10 @@
 Counterpart of ``raytracingc_tpu/render/renderer.py``. :func:`render`:
 primary rays for every pixel, padded to a multiple of ``pixel_chunk`` with
 dead rays, and traced chunk by chunk through the integrator (by default its
-production mode) so that device memory stays bounded at any resolution.
-:func:`render_image`: the same, tonemapped to bytes and optionally written.
+production mode) so that device memory stays bounded at any resolution;
+:func:`trace_rays` is that chunk loop on any rays (a sharded render's
+shard). :func:`render_image`: the same, tonemapped to bytes and optionally
+written.
 """
 
 from __future__ import annotations
@@ -28,6 +30,57 @@ def default_pixel_chunk(n_pix: int) -> int:
     return int(min(max(_round_up(n_pix, 1024), 1024), 65536))
 
 
+def pad_rays(origins, dirs, ray_ids, multiple: int):
+    """Pad rays to a multiple of ``multiple`` with dead rays: ``(origins,
+    dirs, ray_ids, active)``. A padding ray starts at 0 with the unit
+    direction +z, so the math stays finite, and ``active`` keeps it dead (no
+    radiance, no count)."""
+    n = origins.shape[0]
+    pad = _round_up(n, multiple) - n
+    active = torch.arange(n + pad, device=origins.device) < n
+    if pad:
+        origins = torch.cat([origins, origins.new_zeros((pad, 3))])
+        pad_dirs = dirs.new_zeros((pad, 3))
+        pad_dirs[:, 2] = 1.0
+        dirs = torch.cat([dirs, pad_dirs])
+        ray_ids = torch.cat([ray_ids, ray_ids.new_zeros(pad)])
+    return origins, dirs, ray_ids, active
+
+
+def trace_rays(scene: Scene, origins, dirs, ray_ids, spp: int, max_bounce: int,
+               active=None, seed: int = 0, backend: str = "auto",
+               pixel_chunk: int | None = None, early_exit: bool = True,
+               sample_offset: int = 0, compact: bool = True, sample_batch=1,
+               sample_group=1):
+    """Trace ``spp`` samples of each given ray, chunk by chunk: ``(radiance
+    [R, 3], rays_traced)``. The rays are padded to a multiple of
+    ``pixel_chunk`` (default :func:`default_pixel_chunk` of ``R``) with dead
+    rays; lanes with ``active=False`` stay dead too. A lane's radiance does
+    not depend on the chunking; the keywords are :func:`render`'s."""
+    n = origins.shape[0]
+    if pixel_chunk is None:
+        pixel_chunk = default_pixel_chunk(n)
+    if pixel_chunk < 1:
+        raise ValueError(f"pixel_chunk must be >= 1, got {pixel_chunk}")
+    origins, dirs, ray_ids, live = pad_rays(origins, dirs, ray_ids, pixel_chunk)
+    if active is not None:
+        live[:n] &= active
+
+    radiance, count = [], 0
+    for lo in range(0, origins.shape[0], pixel_chunk):
+        hi = lo + pixel_chunk
+        rad, cnt = trace_accumulate(
+            origins[lo:hi], dirs[lo:hi], scene, ray_ids[lo:hi], seed=seed,
+            spp=spp, max_bounce=max_bounce, backend=backend,
+            sample_offset=sample_offset, active=live[lo:hi],
+            early_exit=early_exit, sample_batch=sample_batch, compact=compact,
+            sample_group=sample_group,
+        )
+        radiance.append(rad)
+        count += cnt
+    return torch.cat(radiance)[:n], count
+
+
 def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
            max_bounce: int, seed: int = 0, backend: str = "auto",
            pixel_chunk: int | None = None, early_exit: bool = True,
@@ -45,40 +98,15 @@ def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
     """
     device = torch.device(device) if device is not None else scene.device
     scene, camera = scene.to(device), camera.to(device)
-    n_pix = width * height
-    if pixel_chunk is None:
-        pixel_chunk = default_pixel_chunk(n_pix)
-    if pixel_chunk < 1:
-        raise ValueError(f"pixel_chunk must be >= 1, got {pixel_chunk}")
     origins, dirs = primary_rays(camera, width, height)
-    ray_ids = torch.arange(n_pix, dtype=torch.int64, device=device)
-
-    padded = _round_up(n_pix, pixel_chunk)
-    active = torch.arange(padded, device=device) < n_pix
-    if padded != n_pix:
-        pad = padded - n_pix
-        origins = torch.cat([origins, origins.new_zeros((pad, 3))])
-        # Padding rays get a valid unit direction (+z) so the math stays
-        # finite; the active mask keeps them dead (no radiance, no count).
-        pad_dirs = dirs.new_zeros((pad, 3))
-        pad_dirs[:, 2] = 1.0
-        dirs = torch.cat([dirs, pad_dirs])
-        ray_ids = torch.cat([ray_ids, ray_ids.new_zeros(pad)])
-
-    radiance, count = [], 0
-    for lo in range(0, padded, pixel_chunk):
-        hi = lo + pixel_chunk
-        rad, cnt = trace_accumulate(
-            origins[lo:hi], dirs[lo:hi], scene, ray_ids[lo:hi], seed=seed,
-            spp=spp, max_bounce=max_bounce, backend=backend,
-            sample_offset=sample_offset, active=active[lo:hi],
-            early_exit=early_exit, sample_batch=sample_batch, compact=compact,
-            sample_group=sample_group,
-        )
-        radiance.append(rad)
-        count += cnt
-    image = torch.cat(radiance)[:n_pix].reshape(height, width, 3)
-    return image, count
+    ray_ids = torch.arange(width * height, dtype=torch.int64, device=device)
+    radiance, count = trace_rays(
+        scene, origins, dirs, ray_ids, spp, max_bounce, seed=seed,
+        backend=backend, pixel_chunk=pixel_chunk, early_exit=early_exit,
+        sample_offset=sample_offset, compact=compact, sample_batch=sample_batch,
+        sample_group=sample_group,
+    )
+    return radiance.reshape(height, width, 3), count
 
 
 def render_image(scene: Scene, camera: Camera, width: int, height: int,

@@ -29,6 +29,26 @@ _SAMPLE_MUL = 0x2C1B3C6D
 
 TWO_PI = 6.2831853071795864769
 
+# torch's CPU kernels round some functions (log, cos, pow) differently in
+# their vectorised loop and in the scalar loop over a tensor's last few
+# elements, so a lane's value would depend on its position; on the CPU
+# every lane goes through the vector loop. A multiple of two vectors of 16
+# floats (the vectorised loop's step); one torch thread (a thread's share of
+# a larger tensor can end inside a vector).
+_CPU_VEC_PAD = 64
+
+
+def lanewise(fn, x: torch.Tensor, fill: float = 1.0) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``, each element's value independent
+    of its position in ``x``: on the CPU ``x`` is padded with ``fill`` to
+    whole vectors first. On a card ``fn(x)`` as it is."""
+    if x.device.type != "cpu":
+        return fn(x)
+    flat = x.reshape(-1)
+    pad = -flat.numel() % _CPU_VEC_PAD
+    out = fn(torch.cat([flat, flat.new_full((pad,), fill)]))
+    return out[:flat.numel()].reshape(x.shape)
+
 
 def _advance(state: torch.Tensor) -> torch.Tensor:
     return (state * _LCG_MUL + _LCG_INC) & _M32
@@ -78,7 +98,8 @@ def next_normal(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     state, u1 = next_uniform(state)
     state, u2 = next_uniform(state)
     u2 = torch.clamp_min(u2, 1e-10)
-    z = torch.sqrt(-2.0 * torch.log(u2)) * torch.cos(TWO_PI * u1)
+    z = (torch.sqrt(-2.0 * lanewise(torch.log, u2))
+         * lanewise(torch.cos, TWO_PI * u1))
     return state, z
 
 

@@ -139,6 +139,19 @@ class EnvParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Where a block-sharded scene's triangles live: rank ``rank`` of the
+    ``size`` ranks of the process group ``group`` (the mesh's ``px``
+    dimension) holds the contiguous slice ``[rank * T, (rank + 1) * T)`` of
+    every triangle buffer, ``T`` its own row count. The counterpart of the
+    JAX package's static ``Scene.shard_axis``."""
+
+    group: object  # torch.distributed.ProcessGroup
+    rank: int
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     """Geometry and environment. ``n_triangles``/``n_spheres`` are the live
     (unpadded) counts.
@@ -150,6 +163,11 @@ class Scene:
     through :meth:`with_triangles`. ``resolve_perm`` is the Morton-permuted
     resolve table that ``ops.intersect.with_perm_resolve`` attaches at
     integrator entry (``None``: the resolve gathers original-order rows).
+    ``shard`` marks one rank's slice of a block-sharded scene
+    (``parallel.sharded.render_sharded_blocks``): its triangle buffers and
+    accel are that rank's contiguous rows, ``n_triangles`` the whole scene's
+    live count, and the search and resolve merge across ``shard.group``.
+    ``to`` keeps it.
     """
 
     triangles: Triangles
@@ -159,6 +177,7 @@ class Scene:
     n_spheres: int
     accel: TriangleAccel | None = None
     resolve_perm: torch.Tensor | None = None
+    shard: ShardSpec | None = None
 
     def __post_init__(self):
         # The builders pad to >= 128 triangle rows and >= 8 sphere rows; the
@@ -166,11 +185,10 @@ class Scene:
         if self.triangles.count < 1 or self.spheres.count < 1:
             raise ValueError("a Scene needs >= 1 triangle row and >= 1 sphere row "
                              "(padding rows count)")
-        if not 0 <= self.n_triangles <= self.triangles.count:
-            raise ValueError(
-                f"n_triangles={self.n_triangles} outside [0, "
-                f"{self.triangles.count}]"
-            )
+        # A block-sharded scene keeps the whole scene's live count.
+        rows = self.triangles.count * (1 if self.shard is None else self.shard.size)
+        if not 0 <= self.n_triangles <= rows:
+            raise ValueError(f"n_triangles={self.n_triangles} outside [0, {rows}]")
         if not 0 <= self.n_spheres <= self.spheres.count:
             raise ValueError(
                 f"n_spheres={self.n_spheres} outside [0, {self.spheres.count}]"
@@ -182,6 +200,9 @@ class Scene:
             )
         if self.resolve_perm is not None and self.accel is None:
             raise ValueError("resolve_perm needs the accel whose order it has")
+        if self.resolve_perm is not None and self.shard is not None:
+            raise ValueError("a block-sharded scene resolves from its own slice; "
+                             "it takes no resolve_perm")
 
     @property
     def device(self) -> torch.device:

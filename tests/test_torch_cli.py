@@ -37,7 +37,11 @@ def _options(parser):
 
 def test_parser_matches_jax():
     port, ref = _options(build_parser()), _options(j_build_parser())
+    # The port's own flags: --device, and --dist-backend (torch.distributed's
+    # backend; jax.distributed has none to choose).
     assert port.pop("device") == (("--device",), "cuda", None, ["cuda", "cpu"], None)
+    assert port.pop("dist_backend") == (("--dist-backend",), None, None,
+                                        ["nccl", "gloo"], None)
     assert port == ref
 
 
@@ -73,7 +77,7 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--shard", "pixels"],
+        ["--dist-backend", "gloo"],
         ["--scene-sharding", "blocks"],
         ["--scene-sharding", "blocks", "--checkpoint", "x.npz"],
         ["--scene-sharding", "blocks", "--debug-bounces"],
@@ -83,8 +87,12 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
     ],
 )
 def test_unported_flags_raise(flags, tmp_path):
+    """Every flag is ported; these combinations are refused before any
+    work: the JAX CLI's guard on --scene-sharding blocks, and the
+    multi-process flags given apart (torch.distributed needs all three)."""
     out = tmp_path / "never.bmp"
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(SystemExit,
+                       match="requires --shard|go together|needs --coordinator"):
         main(SMALL + ["--device", "cpu", "-o", str(out)] + flags)
     assert not out.exists()
 

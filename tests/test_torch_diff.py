@@ -277,11 +277,14 @@ def test_fit_scene_geometry_refreshes_accel(monkeypatch):
     """Geometry training on a scene with a host-built accel: every step
     searches an accel refreshed from the current triangles (the face
     normals move here: vertex positions carry no gradient in this diffuse
-    scene, examples/inverse_vertices.py), the losses stay finite, and the
-    fitted scene carries an accel rebuilt for its geometry."""
+    scene, examples/inverse_vertices.py), and refreshes it again after the
+    update for the scene the step returns (make_train_step's two refreshes,
+    as the JAX step's), which the next step searches as it is: 2 + 1
+    refreshes, then 2 after the rebuild at step 2. The losses stay finite,
+    and the fitted scene carries an accel rebuilt for its geometry."""
     import dataclasses
 
-    from raytracingc_tpu_torch.diff import optimize
+    from raytracingc_tpu_torch.parallel import sharded
     from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt, tessellate
 
     box = scene_from_triangles_txt("examples/box_scene.txt")
@@ -291,18 +294,66 @@ def test_fit_scene_geometry_refreshes_accel(monkeypatch):
         {f: np.asarray(getattr(JCamera.look_at(), f)) for f in bridge.CAMERA_FIELDS})
     target, _ = render(s, cam, 8, 8, 2, 2, seed=1)
     refreshed = []
-    monkeypatch.setattr(optimize, "refresh_accel",
+    monkeypatch.setattr(sharded, "refresh_accel",
                         lambda *a: refreshed.append(1) or refresh_accel(*a))
     fitted, losses = fit_scene(s, target * 0.9, cam, steps=3, spp=2, max_bounce=2,
                                trainable=["triangles.normal", "triangles.b"],
                                accel_rebuild_every=2)
-    assert len(losses) == 3 and np.isfinite(losses).all() and len(refreshed) == 3
+    assert len(losses) == 3 and np.isfinite(losses).all() and len(refreshed) == 5
     assert not torch.equal(fitted.triangles.normal, s.triangles.normal)
     assert torch.equal(fitted.triangles.c, s.triangles.c)
     assert torch.equal(fitted.triangles.albedo, s.triangles.albedo)
     want = build_accel(fitted.triangles, n)
     for f in ("aabb_lo", "aabb_hi", "packed_plane", "orig_idx"):
         assert torch.equal(getattr(fitted.accel, f), getattr(want, f)), f
+
+
+def test_train_step_searches_its_own_refreshed_accel(monkeypatch):
+    """A scene passed back with the accel the step returned skips the
+    refresh before the loss; the losses and trained leaves equal those of
+    steps that refresh every time (a copy of the accel each call) bit for
+    bit, and an in-place change to the params makes the step refresh
+    again."""
+    import dataclasses
+
+    from raytracingc_tpu_torch.parallel import sharded
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt, tessellate
+
+    box = scene_from_triangles_txt("examples/box_scene.txt")
+    tris, n = tessellate(box.triangles, box.n_triangles, levels=3)
+    s = dataclasses.replace(box, triangles=tris, n_triangles=n, accel=None).with_accel()
+    cam = bridge.camera_from_numpy(
+        {f: np.asarray(getattr(JCamera.look_at(), f)) for f in bridge.CAMERA_FIELDS})
+    target, _ = render(s, cam, 8, 8, 2, 2, seed=1)
+    origins, dirs = primary_rays(cam, 8, 8)
+    refreshed = []
+    monkeypatch.setattr(sharded, "refresh_accel",
+                        lambda *a: refreshed.append(1) or refresh_accel(*a))
+    runs = []
+    for carry in (True, False):
+        params = {k: t.detach().clone().requires_grad_(k == ".triangles.normal")
+                  for k, t in scene_leaves(s).items()}
+        opt = torch.optim.Adam([params[".triangles.normal"]], lr=1e-2)
+        step = sharded.make_train_step(None, opt, spp=2, max_bounce=2, seed=3)
+        current, losses, start = s, [], len(refreshed)
+        for _ in range(3):
+            if not carry:
+                current = dataclasses.replace(
+                    current, accel=dataclasses.replace(current.accel))
+            current, loss = step(current, params, origins, dirs,
+                                 torch.arange(64), (target * 0.9).reshape(-1, 3))
+            losses.append(loss)
+        runs.append((losses, params[".triangles.normal"].detach().clone(),
+                     len(refreshed) - start))
+        if carry:
+            with torch.no_grad():
+                params[".triangles.normal"].mul_(1.0)
+            step(current, params, origins, dirs, torch.arange(64),
+                 (target * 0.9).reshape(-1, 3))
+            assert len(refreshed) - start == 4 + 2
+    assert runs[0][2] == 4 and runs[1][2] == 6
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 def test_fit_camera_loss_decreases(demo):
@@ -338,9 +389,12 @@ def test_leaf_filter_and_geometry_rule_match_jax(demo):
 
 
 def test_unported_options_raise(demo):
+    """Every option of fit_scene is ported; ``mesh=`` takes a mesh from
+    ``parallel.make_mesh`` (its sharded steps: tests/test_torch_parallel.py)
+    and raises on anything else."""
     _, ts, _, tc = demo
     target = torch.zeros((4, 4, 3))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit_scene(ts, target, tc, steps=1, mesh=object())
 
 

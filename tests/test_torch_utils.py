@@ -239,9 +239,14 @@ def test_progressive_final_partial_batch_ungrouped(demo):
     assert torch.equal(grouped, plain) and n_g == n_p
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"shard_strategy": "pixels"}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"shard_strategy": "diagonal"}])
 def test_progressive_multi_device_raises(demo, kw):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """Sharded progressive renders are ported (tests/test_torch_parallel.py);
+    a mesh not from ``parallel.make_mesh`` or an unknown strategy raises
+    before any batch."""
+    exc, match = ((TypeError, "DeviceMesh") if "mesh" in kw
+                  else (ValueError, "unknown strategy"))
+    with pytest.raises(exc, match=match):
         _progressive(demo, **kw)
 
 
