@@ -13,7 +13,11 @@ entry points, compares a small render on the card with the same render on
 the CPU, runs the integrator's other modes and the training path (with
 a checkpointed resume), then the multi-rank layer: a world of one rank over
 NCCL in this process, and two ranks on the one card over gloo in child
-processes of this script (``--parallel-rank``). Each phase prints
+processes of this script (``--parallel-rank``), then the last entry points:
+forward-mode derivatives through the production render (``torch.func.jvp``,
+``forward_ad``; also sample-sharded, in the child processes), the dispatch
+calibration grid, the granule counts and the four inverse-rendering
+examples. Each phase prints
 one line per step; any failure raises and the script exits non-zero without
 printing a result.
 
@@ -412,6 +416,49 @@ PARALLEL_RANKS = 2
 PARALLEL_GRAD_REL = 1e-5
 PARALLEL_LR = 0.05
 PARALLEL_TIMEOUT = 400
+
+# Phase 8, the last entry points: forward mode, the two calibration tools
+# and the four inverse-rendering examples.
+# Run (x), forward mode on box_scene (K1): torch.func.jvp and forward_ad
+# through render(early_exit=True) at FWD_RUN, with tangents of ones on the
+# triangles' albedo and emission and a seeded normal one on vertex a
+# (fwd_tangents): the primal equals the production render bit for bit and
+# each launches exactly the production render's K1 launches, no other
+# kernel; at FWD_SMALL the jvp of a weighted loss (weights from a seeded
+# CPU generator) equals grad . v of the differentiable fast forward within
+# FWD_REV_RTOL (each sums 3 x 65,536 pixel terms and the leaves' products
+# in its own order; the CPU test reads < 1e-5). In run (w), the two gloo
+# ranks' sample-sharded jvp at FWD_SMALL equals the mean of the one-device
+# jvps of the two offset renders bit for bit (a sum of two is order-free).
+FWD_RUN = dict(width=1920, height=1080, spp=2, max_bounce=8)
+FWD_SMALL = dict(width=256, height=256, spp=2, max_bounce=8)
+FWD_REV_RTOL = 1e-4
+FWD_SEED = 20261017
+# Run (y), raytracingc_tpu_torch/tools/dispatch_calibration.py's grid
+# through its calibrate(): both legs in this process, each (cell, leg)
+# counted on its own (the brute leg launches only K1, the packet leg only
+# K2), the legs' BMP bytes and traced rays equal in every cell (checked by
+# calibrate). Every cell's spp is cut DISPATCH_SPP_CUT-fold (128x128: 64
+# -> 16, 1920x1080: 8 -> 2) and timed once after its warm run (the tool:
+# the best of 2) to bound the run time; the tool's own run keeps the JAX
+# tool's spp.
+DISPATCH_SPP_CUT = 4
+# Run (z), raytracingc_tpu_torch/tools/granule_analysis.py: at
+# GRANULE_LEVEL (163,840 triangles) the counts of one 65,536-ray chunk of
+# the 1080p primary rays (pixels GRANULE_CHUNK onwards, the middle chunk of
+# tools/chunk_profile.py) on the card equal the CPU port's, integer for
+# integer; then the tool's entry point runs the whole frame at
+# GRANULE_FULL_LEVEL (655,360 triangles) on the card and prints its table.
+GRANULE_LEVEL = 7
+GRANULE_FULL_LEVEL = 8
+GRANULE_CHUNK = 1 << 20
+# Run (x'), the four examples of raytracingc_tpu_torch/examples/ on the card
+# at their JAX tests' steps (tests/test_diff.py: vertices 60, camera 120,
+# sphere 150; albedo at its default 80) and bars: (losses[-1] / losses[0],
+# error after / before) below these (albedo: its exit code 0, the wall's
+# error fallen). Every scene has <= 128 triangles: each launches K1 only.
+EXAMPLES = {"inverse_vertices": (60, 0.1, 0.25), "inverse_camera": (120, 0.2, 0.25),
+            "inverse_sphere": (150, 0.2, 0.25)}
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -1819,6 +1866,24 @@ def parallel_rank(rank: int, cfg: dict) -> int:
         timed("samples", lambda: render_sharded(
             scene_from_triangles_txt(BOX_SCENE), cam, **run,
             mesh=make_mesh(1, n, device_type=device_type)))
+    # Run (x) in the world: the sample-sharded render's jvp (image and
+    # tangent stacked).
+    box = scene_from_triangles_txt(BOX_SCENE).to(dev)
+    tangents = fwd_tangents(box)
+
+    def sharded_jvp():
+        from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+        def fn(lv):
+            img, c = render_sharded(with_leaves(box, lv), cam, **FWD_SMALL,
+                                    mesh=make_mesh(1, n, device_type=device_type))
+            return img, torch.tensor(c)
+
+        leaves = {k: scene_leaves(box)[k] for k in tangents}
+        img, dot, c = torch.func.jvp(fn, (leaves,), (tangents,), has_aux=True)
+        return torch.stack([img, dot]), int(c)
+
+    timed("jvp samples", sharded_jvp)
     scene = train_scene(dev)
     target = _train_target(scene, cam, train)
     mesh = make_mesh(n, 1, device_type=device_type)
@@ -1909,6 +1974,19 @@ def run_parallel_ranks(dev, tmp, cli_main, run=PARALLEL, train=TRAIN,
                 torch.from_numpy(got["samples"]), want.cpu()):
             raise AssertionError("run w: the spp-sharded render is not the mean of "
                                  "the offset renders")
+    # Run (x) in the world: the mean of the one-device jvps of the offset
+    # renders, image and tangent.
+    per = FWD_SMALL["spp"] // PARALLEL_RANKS
+    tangents = fwd_tangents(box)
+    parts = [jvp_render(box, cam, tangents, "func",
+                        **{**FWD_SMALL, "spp": per}, sample_offset=k * per)
+             for k in range(PARALLEL_RANKS)]
+    want = torch.stack([sum(p[i] for p in parts) / float(PARALLEL_RANKS)
+                        for i in range(2)])
+    if ranks[0]["jvp samples"][1] != sum(p[2] for p in parts) or not _same_bits(
+            torch.from_numpy(got["jvp samples"]), want.cpu()):
+        raise AssertionError("run w: the spp-sharded jvp (image, tangent) is not "
+                             "the mean of the offset renders' jvps")
     scene = train_scene(dev)
     loss, grads = _step_grads(scene, cam, _train_target(scene, cam, train), train,
                               None)
@@ -1920,6 +1998,212 @@ def run_parallel_ranks(dev, tmp, cli_main, run=PARALLEL, train=TRAIN,
         raise AssertionError(f"run w: the 2x1 step's gradients against one "
                              f"device's: {rel}, loss {loss_rel:.3g}")
     out["train"] = (worst, rel[worst], loss_rel, len(scene_leaves(scene)))
+    return out
+
+
+def fwd_tangents(scene, seed=FWD_SEED) -> dict:
+    """Run (x)'s tangents: ones on the triangles' albedo and emission, a
+    seeded standard normal on vertex a."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.scene.types import scene_leaves
+
+    leaves = scene_leaves(scene)
+    a = leaves[".triangles.a"]
+    rng = np.random.default_rng(seed)
+    return {".triangles.albedo": torch.ones_like(leaves[".triangles.albedo"]),
+            ".triangles.emission": torch.ones_like(leaves[".triangles.emission"]),
+            ".triangles.a": torch.from_numpy(rng.standard_normal(
+                tuple(a.shape)).astype(np.float32)).to(a.device)}
+
+
+def jvp_render(scene, cam, tangents, mode: str, **kw):
+    """``(image, tangent, traced rays)`` of ``render(..., early_exit=True)``
+    along ``tangents`` ({leaf: tensor}) by ``torch.func.jvp`` (``mode="func"``)
+    or ``torch.autograd.forward_ad``."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+    leaves = {k: scene_leaves(scene)[k] for k in tangents}
+
+    def fn(lv):
+        img, n = render(with_leaves(scene, lv), cam, **kw, early_exit=True)
+        return img, torch.tensor(n)  # jvp's aux holds tensors only
+
+    if mode == "func":
+        img, dot, n = torch.func.jvp(fn, (leaves,), (tangents,), has_aux=True)
+        return img, dot, int(n)
+    with fwAD.dual_level():
+        img, n = fn({k: fwAD.make_dual(v, tangents[k]) for k, v in leaves.items()})
+        img, dot = fwAD.unpack_dual(img)
+        return img, dot, int(n)
+
+
+def check_forward_mode(dev, count) -> dict:
+    """Run (x) in this process. ``count(expect, label, fn)`` runs ``fn``
+    under the launch counters and returns ``(fn's result, launches)``.
+    Returns ``{label: (seconds, launches)}`` and the forward/reverse
+    relative difference; raises on a broken identity."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera, primary_rays
+    from raytracingc_tpu_torch.render.integrator import trace_accumulate
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+    from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    box = scene_from_triangles_txt(BOX_SCENE).to(dev)
+    cam = Camera.look_at(device=dev)
+    tangents = fwd_tangents(box)
+    out = {}
+
+    def timed(label, fn):
+        sync()
+        t = time.time()
+        result, k1 = count("search_brute", f"x {label}", lambda: (fn(), sync())[0])
+        out[label] = (time.time() - t, k1)
+        return result
+
+    with torch.no_grad():
+        want, n = timed("production", lambda: render(box, cam, **FWD_RUN))
+    for mode in ("func", "forward_ad"):
+        img, dot, m = timed(f"jvp {mode}", lambda: jvp_render(box, cam, tangents,
+                                                             mode, **FWD_RUN))
+        if m != n or not _same_bits(img, want):
+            raise AssertionError(f"run x: the {mode} jvp's primal is not the "
+                                 f"production render's bits ({m} against {n} rays)")
+        if out[f"jvp {mode}"][1] != out["production"][1]:
+            raise AssertionError(f"run x: the {mode} jvp launched K1 "
+                                 f"{out[f'jvp {mode}'][1]} times, production "
+                                 f"{out['production'][1]}")
+        if not bool(torch.isfinite(dot).all()) or float(dot.abs().max()) == 0:
+            raise AssertionError(f"run x: the {mode} jvp's tangent is not finite "
+                                 f"or all zero")
+
+    w_, h_ = FWD_SMALL["width"], FWD_SMALL["height"]
+    o, d = primary_rays(cam, w_, h_)
+    ids = torch.arange(w_ * h_, device=dev)
+    wts = torch.randn((w_ * h_, 3), generator=torch.Generator().manual_seed(FWD_SEED))
+    wts = wts.to(dev)
+    leaves = {k: scene_leaves(box)[k] for k in tangents}
+
+    def loss(lv, early_exit):
+        r, _ = trace_accumulate(o, d, with_leaves(box, lv), ids, seed=0,
+                                spp=FWD_SMALL["spp"],
+                                max_bounce=FWD_SMALL["max_bounce"],
+                                early_exit=early_exit)
+        return (r * wts).sum()
+
+    _, fwd = torch.func.jvp(lambda lv: loss(lv, True), (leaves,), (tangents,))
+    grad_in = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    loss(grad_in, False).backward()
+    rev = sum(float((t.grad * tangents[k]).sum()) for k, t in grad_in.items())
+    rel = abs(float(fwd) - rev) / abs(rev)
+    if not rel <= FWD_REV_RTOL:
+        raise AssertionError(f"run x: jvp {float(fwd)!r} against grad . v {rev!r} "
+                             f"(relative {rel:.3g} > {FWD_REV_RTOL})")
+    return out, rel
+
+
+def run_dispatch(dev, kernels, totals) -> tuple:
+    """Run (y): the dispatch grid through ``calibrate``; each (cell, leg)
+    counted on its own. Returns the rows and the crossover."""
+    from raytracingc_tpu_torch.tools import dispatch_calibration as dc
+
+    grid = tuple((lv, w, h, spp // DISPATCH_SPP_CUT) for lv, w, h, spp in dc.GRID)
+    expect = {"brute": "search_brute", "packet": "search_bitmask"}
+
+    def on_cell(row):
+        launched = {k: f.launches for k, f in kernels.items()}
+        for k, f in kernels.items():
+            totals[k] += f.launches
+            f.launches = 0
+        want = expect[row["leg"]]
+        others = {k: v for k, v in launched.items() if v and k != want}
+        if launched[want] < 1 or others:
+            raise AssertionError(f"run y {row['leg']} level {row['level']}: "
+                                 f"launches {launched}")
+        row["launches"] = launched[want]
+        print(f"  {dc.line(row)}, {launched[want]} {want} launches", flush=True)
+
+    for f in kernels.values():
+        f.launches = 0
+    rows = dc.calibrate(dev, grid, reps=1, on_cell=on_cell)
+    return rows, dc.crossover(rows)
+
+
+def run_granules(dev) -> dict:
+    """Run (z). Returns the level-7 chunk's counts and the full frame's
+    table (the tool's lines); raises unless card == CPU."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera, primary_rays
+    from raytracingc_tpu_torch.ops import culling
+    from raytracingc_tpu_torch.tools import granule_analysis as ga
+    from raytracingc_tpu_torch.tools.union_walk_ab import load_scene
+
+    scene = load_scene(BOX_SCENE, GRANULE_LEVEL, dev)
+    tile, _, bpt = ga.layout(scene.accel, culling.STREAM_TILE)
+    granules = ga.granules_for(bpt)
+    o, d = primary_rays(Camera.look_at(device=dev), 1920, 1080)
+    rays = slice(GRANULE_CHUNK, GRANULE_CHUNK + ga.CHUNK)
+    t = time.time()
+    card = ga.granule_counts(scene.accel, o[rays], d[rays], tile, granules)
+    card_s = time.time() - t
+    t = time.time()
+    cpu = ga.granule_counts(scene.accel.to("cpu"), o[rays].cpu(), d[rays].cpu(),
+                            tile, granules)
+    cpu_s = time.time() - t
+    if card != cpu:
+        raise AssertionError(f"run z: the card's counts {card} != the CPU's {cpu}")
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = ga.main(["--device", dev.type, "--tessellate", str(GRANULE_FULL_LEVEL)])
+    if rc != 0:
+        raise AssertionError(f"run z: granule_analysis exit code {rc}\n{buf.getvalue()}")
+    return dict(chunk=card, lines=ga.report(card, bpt), card_s=card_s, cpu_s=cpu_s,
+                full=buf.getvalue().splitlines()[1:-1], full_s=time.time() - t)
+
+
+def run_examples(dev, count, tmp) -> dict:
+    """Run (x'): the four examples on ``dev``, each counted (K1 only).
+    Returns ``{name: (seconds, loss ratio, error before, error after,
+    launches)}``; raises where a JAX test's bar is missed."""
+    import importlib
+
+    from raytracingc_tpu_torch.examples import inverse_albedo
+
+    out = {}
+    for name, (steps, loss_bar, err_bar) in EXAMPLES.items():
+        mod = importlib.import_module(f"raytracingc_tpu_torch.examples.{name}")
+        t = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            (losses, e0, e1), k1 = count("search_brute", f"x' {name}",
+                                         lambda: mod.main(steps, device=dev))
+        ratio = losses[-1] / losses[0]
+        out[name] = (time.time() - t, ratio, e0, e1, k1)
+        if not (ratio < loss_bar and e1 < err_bar * e0):
+            raise AssertionError(f"run x' {name}: loss ratio {ratio:.4g} (bar "
+                                 f"{loss_bar}), error {e0:.4g} -> {e1:.4g} (bar "
+                                 f"{err_bar}x)\n{buf.getvalue()}")
+    t = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, k1 = count("search_brute", "x' inverse_albedo", lambda: inverse_albedo.main(
+            ["--device", dev.type, "--out", os.path.join(tmp, "inverse_albedo")]))
+    err = re.search(r"loss ([0-9.e-]+) -> ([0-9.e-]+); mean \|albedo err\| "
+                    r"([0-9.]+) -> ([0-9.]+)", buf.getvalue())
+    if rc != 0 or err is None:
+        raise AssertionError(f"run x' inverse_albedo: exit code {rc}\n{buf.getvalue()}")
+    l0, l1, e0, e1 = (float(x) for x in err.groups())
+    out["inverse_albedo"] = (time.time() - t, l1 / l0, e0, e1, k1)
     return out
 
 
@@ -2332,6 +2616,7 @@ def main() -> int:
     launched = {k: fn.launches for k, fn in kernels.items()}
     for r in ranks["ranks"]:
         for label, want in (("cli", "search_brute"), ("samples", "search_brute"),
+                            ("jvp samples", "search_brute"),
                             ("blocks", "search_bitmask"),
                             ("train", "search_bitmask")):
             if r["launches"][label][want] < 1:
@@ -2355,6 +2640,52 @@ def main() -> int:
               f"{k} {sec:.3f}s ({n} rays)" for k, v in ranks.items()
               if k not in ("ranks", "train") for sec, n in (v,))
           + f"; launches {({k: v for k, v in launched.items() if v})}")
+
+    # 8. The last entry points: forward mode (run (x); its sample-sharded
+    # half ran in (w)), the dispatch grid (y), the granule counts (z) and
+    # the four examples (x'), each counted like the main runs.
+    count = lambda expect, label, fn: counted(kernels, total_launches, expect,
+                                              label, fn)
+    t = time.time()
+    fwd, fwd_rel = check_forward_mode(dev, count)
+    w_jvp = [r["jvp samples"] for r in ranks["ranks"]]
+    phase("forward", t, f"x: {FWD_RUN}, box_scene, tangents on .triangles.albedo, "
+          f".emission, .a: torch.func.jvp and forward_ad primals == production "
+          f"bitwise, K1 launches == production's; " + ", ".join(
+              f"{k} {sec:.3f}s ({k1} search_brute launches)"
+              for k, (sec, k1) in fwd.items())
+          + f"; {FWD_SMALL}: jvp vs grad . v relative {fwd_rel:.3g} (<= "
+          f"{FWD_REV_RTOL}); in run (w) {PARALLEL_RANKS} gloo ranks' "
+          f"sample-sharded jvp == the mean of the offset one-device jvps "
+          f"bitwise (" + ", ".join(f"rank {i} {sec:.3f}s" for i, (sec, _)
+                                   in enumerate(w_jvp)) + ")")
+
+    t = time.time()
+    print(f"[dispatch] {smi}", flush=True)
+    rows, cross = run_dispatch(dev, kernels, total_launches)
+    phase("dispatch", t, f"y: dispatch_calibration grid (spp cut "
+          f"{DISPATCH_SPP_CUT}-fold): brute and packet legs equal in "
+          f"BMP bytes and traced rays in all {len(rows) // 2} cells, brute "
+          f"launched only K1, packet only K2; " + "; ".join(
+              f"{r['leg']} {r['n_live']} {r['width']}x{r['height']} {r['spp']} spp "
+              f"{r['rays_per_s']:.4e} rays/s" for r in rows)
+          + "; crossover " + json.dumps(cross))
+
+    t = time.time()
+    gran = run_granules(dev)
+    phase("granule", t, f"z: level {GRANULE_LEVEL}, the 65,536 rays from pixel "
+          f"{GRANULE_CHUNK}: card == CPU ({gran['card_s']:.3f}s / "
+          f"{gran['cpu_s']:.3f}s): " + "; ".join(gran["lines"])
+          + f" | level {GRANULE_FULL_LEVEL}, 1920x1080 ({gran['full_s']:.2f}s): "
+          + "; ".join(gran["full"]))
+
+    t = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = run_examples(dev, count, tmp)
+    phase("examples", t, "x': " + "; ".join(
+        f"{name}: {sec:.2f}s, loss ratio {ratio:.4g}, error {e0:.4g} -> {e1:.4g}, "
+        f"{k1} search_brute launches"
+        for name, (sec, ratio, e0, e1, k1) in examples.items()))
 
     # The kernel line's times are those at the main path's shapes: R =
     # TIMED_RAYS with box_scene at 640 (brute; mxu, split3, as in run (k)),
@@ -2390,6 +2721,7 @@ def main() -> int:
         ("smem_probe", "tools/smem_probe.py:20", (smem_ms["ms"], smem_ms["plain"]),
          bound(smem_work[0], 0, smem_work[1]), 0.0),
     ]
+    phase("total", t0, "chip_smoke.py up to the kernel line")
     print(nvidia_smi())
     print(json.dumps({"kernels": [{
         "name": name,

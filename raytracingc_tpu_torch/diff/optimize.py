@@ -121,7 +121,7 @@ def fit_camera(scene: Scene, target: torch.Tensor, camera: Camera, *,
         losses.append(loss.item())
     _check_finite(losses, "fit_camera")
     with torch.no_grad():
-        return build(params), losses
+        return build({k: t.detach() for k, t in params.items()}), losses
 
 
 def fit_scene(

@@ -54,6 +54,7 @@ import torch
 
 from raytracingc_tpu_torch.ops.accel import BLOCK, PAD_ORIG_IDX
 from raytracingc_tpu_torch.ops.culling import BITS_PER_WORD, RAYS_PER_PROGRAM
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_bitmask import bitmask_table, lex_merge
 from raytracingc_tpu_torch.ops.search_range import MISS_KEY, pack_keys, unpack_keys
 from raytracingc_tpu_torch.scene.types import EPSILON, MISS_DST, Triangles
@@ -399,6 +400,7 @@ def _check_args(o, d, words, flags, coeffs, orig_idx, precision, alive):
         raise ValueError(f"{o.shape[0]} rays: the kernel indexes rays in int32")
 
 
+@no_tangent
 def search_mxu(o, d, words, flags, coeffs, orig_idx, precision: str = "split3",
                alive=None):
     """Closest hit by bilinear MT over each program's union: ``(dst [R], idx

@@ -30,7 +30,11 @@ as the JAX package does (the mxu route packs its coefficient table per
 call). Every branch but mxu gives the same result bit for bit; mxu agrees
 within its contract (``ops/intersect_mxu.py``). A CUDA tensor launches the
 branch's kernel, a CPU tensor runs the same branch's plain version. Nothing
-falls back to another branch or device. Left out: the JAX package's ray
+falls back to another branch or device. Every wrapper runs under
+``ops/no_tangent.no_tangent``: on the plain tensors under ``torch.func.jvp``
+(whose wrapped tensors have no ``data_ptr``), with outputs that carry no
+derivative in any autograd mode, the same bits and launches as without.
+Left out: the JAX package's ray
 slicing (``max_rays``, ``:1920-1985``), which bounds the TPU kernels' scalar
 memory and changes no result; the CUDA kernels read their tables from
 global memory.

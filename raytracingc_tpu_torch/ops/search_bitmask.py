@@ -22,6 +22,7 @@ import torch
 
 from raytracingc_tpu_torch.ops.accel import BLOCK, PAD_ORIG_IDX
 from raytracingc_tpu_torch.ops.culling import BITS_PER_WORD, RAY_SUBLANES
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_brute import mt_distance
 from raytracingc_tpu_torch.scene.types import MISS_DST
 
@@ -127,6 +128,7 @@ def n_packets(n_rays: int) -> int:
     return -(-n_rays // RAY_SUBLANES)
 
 
+@no_tangent
 def search_bitmask(o, d, words, plane, orig_idx):
     """Bitmask packet search: ``(dst [R], idx [R])``.
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.scene.types import EPSILON, MISS_DST, Triangles
 
 
@@ -116,6 +117,7 @@ def _check_args(o, d, tri, n_live, alive):
             raise ValueError("alive: expected a contiguous tensor on o's device")
 
 
+@no_tangent
 def search_brute(o, d, tri, n_live, alive=None):
     """Closest hit of each ray among ``tri[:n_live]``: ``(dst, idx)``.
 

@@ -25,6 +25,7 @@ import torch
 
 from raytracingc_tpu_torch.ops.accel import BLOCK
 from raytracingc_tpu_torch.ops.culling import BITS_PER_WORD
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_bitmask import (
     check_packet_args,
     n_packets,
@@ -67,6 +68,7 @@ def check_tiled_args(o, d, words, plane, orig_idx, tile, granule):
                          f"{bpt} blocks at granule {granule}")
 
 
+@no_tangent
 def search_packed(o, d, words, plane, orig_idx, tile: int, granule: int):
     """Packed packet search over tiles: ``(dst [R], idx [R])``.
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from raytracingc_tpu_torch.ops.accel import BLOCK, PAD_ORIG_IDX
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_bitmask import (
     check_packet_args,
     n_packets,
@@ -113,6 +114,7 @@ def search_range_split(o, d, first, last, plane, orig_idx, split: int):
     return unpack_keys(keys)
 
 
+@no_tangent
 def search_range(o, d, first, last, plane, orig_idx):
     """Range packet search: ``(dst [R], idx [R])``.
 

@@ -37,6 +37,7 @@ from raytracingc_tpu_torch.ops.culling import (
     RAYS_PER_PROGRAM,
     stream_tile_pad,
 )
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_bitmask import (
     bitmask_table,
     check_packet_args,
@@ -86,6 +87,7 @@ def search_union_words(o, d, words, flags, plane, orig_idx):
     return search_words_reference(o, d, rows, plane, oi, UNION_TILE, 1)
 
 
+@no_tangent
 def search_union(o, d, words, flags, plane, orig_idx):
     """Union-walk search: ``(dst [R], idx [R])``.
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from raytracingc_tpu_torch.ops.accel import BLOCK
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_bitmask import search_blocks_reference
 from raytracingc_tpu_torch.ops.search_packed import check_tiled_args, packed_table
 from raytracingc_tpu_torch.ops.search_range import (
@@ -145,6 +146,7 @@ def search_words_split(o, d, words, plane, orig_idx, tile: int, granule: int,
     return unpack_keys(keys)
 
 
+@no_tangent
 def search_words(o, d, words, plane, orig_idx, tile: int, granule: int):
     """One-word-per-tile packet search: ``(dst [R], idx [R])``.
 

@@ -15,6 +15,11 @@ and one process per rank in place of ``shard_map``:
   associates the sample sum as a mean of means: equal to the sum of
   ``render(spp=spp_per, sample_offset=k * spp_per)`` over ``k`` divided by
   the size, not to one render of every sample.
+* A replicated-scene render differentiates in forward mode
+  (``torch.func.jvp``, ``forward_ad``): the spp mean's tangent is the mean
+  of the ranks' tangents and the px gather gathers them, as JAX's ``pmean``
+  and ``all_gather`` differentiate, so every rank holds the tangent of the
+  whole image.
 * The traced-ray count is summed over both dimensions (exact integers; a
   padding ray is never counted).
 * **Blocks** (``scene_sharding="blocks"``): each ``px`` rank holds a
@@ -40,6 +45,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from raytracingc_tpu_torch.camera import Camera, primary_rays
 from raytracingc_tpu_torch.ops.accel import BLOCK, TriangleAccel, refresh_accel
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_coords,
@@ -81,18 +87,39 @@ def _spp_split(spp: int, n_spp: int) -> int:
     return spp // n_spp
 
 
+@no_tangent
 def _spp_mean(radiance: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """The mean of the ``spp`` ranks' radiances (sum, then divide)."""
+    """The mean of the ``spp`` ranks' radiances (sum, then divide), with no
+    derivative (:class:`_SppMean` gives it one); ``radiance`` is summed in
+    place."""
     dist.all_reduce(radiance, group=mesh.get_group("spp"))
     return radiance / float(mesh_shape(mesh)[1])
+
+
+@no_tangent
+def _px_gather(radiance: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The ``px`` ranks' blocks of rows, gathered in rank order, with no
+    derivative (:class:`_PxGather` gives it one)."""
+    parts = [torch.empty_like(radiance) for _ in range(mesh_shape(mesh)[0])]
+    dist.all_gather(parts, radiance.contiguous(), group=mesh.get_group("px"))
+    return torch.cat(parts)
+
+
+@no_tangent
+def _summed(count: torch.Tensor, group) -> torch.Tensor:
+    """``all_reduce`` (sum) of a copy of ``count`` over ``group``, on the
+    plain tensor under ``torch.func.jvp`` too (a tensor made inside the
+    transform is a functorch wrapper)."""
+    count = count.clone()
+    dist.all_reduce(count, group=group)
+    return count
 
 
 def _sum_count(count: int, device, group=None) -> int:
     """``count`` summed over ``group`` (default: the world, which the mesh
     spans), exactly, as int64."""
-    t = torch.tensor([count], dtype=torch.int64, device=device)
-    dist.all_reduce(t, group=group)
-    return int(t.item())
+    return int(_summed(torch.tensor([count], dtype=torch.int64, device=device),
+                       group).item())
 
 
 def render_sharded(scene: Scene, camera: Camera, width: int, height: int,
@@ -147,10 +174,8 @@ def _render_replicated(scene, camera, width, height, spp, max_bounce, *, seed,
         early_exit=early_exit, sample_offset=sample_offset + s * spp_per,
         compact=compact, sample_group=sample_group,
     )
-    radiance = _spp_mean(radiance, mesh)
-    parts = [torch.empty_like(radiance) for _ in range(px)]
-    dist.all_gather(parts, radiance, group=mesh.get_group("px"))
-    image = torch.cat(parts)[:n_pix].reshape(height, width, 3)
+    radiance = _PxGather.apply(_SppMean.apply(radiance, mesh), mesh)
+    image = radiance[:n_pix].reshape(height, width, 3)
     return image, _sum_count(count, dev)
 
 
@@ -272,26 +297,66 @@ def render_sharded_blocks(scene: Scene, camera: Camera, width: int,
 
 
 class _SppMean(torch.autograd.Function):
-    """The mean of the ``spp`` ranks' radiances, differentiable.
+    """The mean of the ``spp`` ranks' radiances, differentiable in both
+    modes.
 
-    Every rank of an ``spp`` group holds the same loss of the same mean, so
-    the cotangent of the mean is the same on each; the backward passes it
-    on unchanged as the cotangent of the rank's own radiance, and no
-    collective runs. The gradients are then summed over the mesh and
-    divided by the ``spp`` size (:func:`make_train_step`), which gives the
-    true gradient: the mean's Jacobian 1/n_spp is applied there, once.
-    (``torch.distributed.nn.functional.all_reduce`` would sum the cotangents
-    in its backward instead; with that sum and a division by the whole
-    mesh's size the result is the same.)
+    Forward mode: the tangent of the mean is the mean of the ranks'
+    tangents, one ``all_reduce`` on the tangent (JAX's ``pmean``), so every
+    rank holds the tangent of the whole sample-sharded image.
+
+    Reverse mode: every rank of an ``spp`` group holds the same loss of the
+    same mean, so the cotangent of the mean is the same on each; the
+    backward passes it on unchanged as the cotangent of the rank's own
+    radiance, and no collective runs. The gradients are then summed over
+    the mesh and divided by the ``spp`` size (:func:`make_train_step`),
+    which gives the true gradient: the mean's Jacobian 1/n_spp is applied
+    there, once. (``torch.distributed.nn.functional.all_reduce`` would sum
+    the cotangents in its backward instead; with that sum and a division by
+    the whole mesh's size the result is the same.)
     """
 
     @staticmethod
-    def forward(ctx, radiance, mesh):
-        return _spp_mean(radiance.detach().clone(), mesh)
+    def forward(radiance, mesh):
+        return _spp_mean(radiance.clone(), mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return None if tangent is None else _spp_mean(tangent.clone(), ctx.mesh)
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _PxGather(torch.autograd.Function):
+    """The ``px`` ranks' radiance blocks gathered in rank order,
+    differentiable in both modes: the tangent is the gathered tangents
+    (JAX's ``all_gather``); the cotangent of a rank's own block is its rows
+    of the image's cotangent (each rank holds the same loss of the whole
+    image, and :func:`make_train_step`'s convention sums the ranks'
+    gradients)."""
+
+    @staticmethod
+    def forward(radiance, mesh):
+        return _px_gather(radiance, mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+        ctx.rows = inputs[0].shape[0]
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return None if tangent is None else _px_gather(tangent, ctx.mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        p, _ = mesh_coords(ctx.mesh)
+        return grad[p * ctx.rows:(p + 1) * ctx.rows], None
 
 
 def make_train_step(mesh: DeviceMesh | None, optimizer: torch.optim.Optimizer,

@@ -28,8 +28,9 @@ def tonemap_to_bytes(linear: np.ndarray) -> np.ndarray:
     return out
 
 
-def write_bmp(path: str, pixels: np.ndarray) -> None:
-    """Write a 24-bit BMP. ``pixels`` is [H, W, 3] uint8 RGB, row 0 = top."""
+def bmp_bytes(pixels: np.ndarray) -> bytes:
+    """A 24-bit BMP file's bytes. ``pixels`` is [H, W, 3] uint8 RGB, row 0 =
+    top."""
     h, w, _ = pixels.shape
     row_bytes = (w * 3 + 3) & ~3
     image_size = row_bytes * h
@@ -56,9 +57,13 @@ def write_bmp(path: str, pixels: np.ndarray) -> None:
     bgr = pixels[::-1, :, ::-1]  # bottom-up rows, BGR channel order
     padded = np.zeros((h, row_bytes), np.uint8)
     padded[:, : w * 3] = bgr.reshape(h, w * 3)
+    return header + padded.tobytes()
+
+
+def write_bmp(path: str, pixels: np.ndarray) -> None:
+    """Write a 24-bit BMP (:func:`bmp_bytes`)."""
     with open(path, "wb") as fh:
-        fh.write(header)
-        fh.write(padded.tobytes())
+        fh.write(bmp_bytes(pixels))
 
 
 def read_bmp(path: str) -> np.ndarray:

@@ -19,6 +19,9 @@ and scatter on that path is out of place (``index_copy`` into a fresh
 tensor), so the same code is reverse-differentiable under autograd: the
 search runs under ``torch.no_grad`` and the resolve, shading, environment
 light and camera carry the gradients (the visibility-frozen subgradient).
+Forward mode (``torch.func.jvp``, ``torch.autograd.forward_ad``) runs
+through every mode, production included, on the card's kernels too: the
+search wrappers carry no tangent (``ops/no_tangent.py``).
 
 Traced rays are counted as Python integers (exact at any size; the JAX
 package sums them in float32).
@@ -179,9 +182,10 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
     ``sample_id`` running from ``sample_offset``. Modes (``early_exit``,
     ``compact``), as in the JAX package:
 
-    * ``(True, *)``: the production forward. Forward-only: with grad
+    * ``(True, *)``: the production forward. No reverse mode: with grad
       enabled and any input requiring grad it raises ``ValueError`` naming
-      the differentiable mode.
+      the differentiable mode (JAX's ``while_loop`` refuses it too);
+      forward mode works (``torch.func.jvp``, ``forward_ad``).
     * ``(False, True)``, the default: the differentiable fast forward, the
       same hit-front accumulation as production (values and counts equal
       bit for bit) under autograd.

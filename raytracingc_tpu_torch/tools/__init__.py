@@ -3,15 +3,19 @@ raytracingc_tpu_torch.tools.<name>``: ``union_walk_ab`` (K9, program-level
 union culling against the production search), ``smem_probe`` (K10, the
 largest shared-memory table a kernel can hold), ``packet_sweep`` (the
 packet kernels K2, K3, the range kernel K4, K5 and the words kernel K6, K7
-timed on their ray sets)
-and ``chunk_profile``
-(where one pixel chunk's device time goes). ``packets`` holds the seeded
+timed on their ray sets),
+``chunk_profile`` (where one pixel chunk's device time goes),
+``dispatch_calibration`` (the brute/packet crossover that sets
+``RTC_BRUTE_MAX``: rays/s of each leg on box_scene tessellations) and
+``granule_analysis`` (the dead MT work inside set granule bits of the words
+route at streamed scale). ``packets`` holds the seeded
 packet workloads they, chip_smoke.py and the tests share. Importing one runs
 nothing.
 """
 
 import contextlib
 import os
+import subprocess
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -29,6 +33,18 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the first card, or "" where
+    there is no ``nvidia-smi``."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    return out.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

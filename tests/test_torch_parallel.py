@@ -60,7 +60,7 @@ from raytracingc_tpu_torch.parallel import (
     render_sharded_blocks,
 )
 from raytracingc_tpu_torch.render.renderer import render
-from raytracingc_tpu_torch.scene.types import LEAF_PATHS, scene_leaves
+from raytracingc_tpu_torch.scene.types import LEAF_PATHS, scene_leaves, with_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOX_SCENE = os.path.join(REPO, "examples", "box_scene.txt")
@@ -289,6 +289,30 @@ def test_spp_sharded_equals_mean_of_offset_renders(worlds, port, size, case, n_s
     got = worlds[size][0]
     np.testing.assert_array_equal(_bits(got[f"{case}/image"]), _bits(want.numpy()))
     assert int(got[f"{case}/count"]) == sum(n for _, n in parts)
+
+
+@pytest.mark.parametrize("size,case", [(2, "jvp_samples"), (4, "jvp_both")],
+                         ids=["samples-1x2", "both-2x2"])
+def test_spp_sharded_jvp_equals_mean_of_offset_jvps(worlds, port, size, case):
+    """torch.func.jvp of a sample-sharded render (production mode): the
+    image and its tangent on every rank are the means of the one-device
+    jvps of the offset renders, bit for bit (the spp mean's jvp is one
+    all_reduce on the tangent, as JAX's pmean differentiates; the px
+    gather's jvp gathers the tangents)."""
+    load, cam = port
+    scene = load("demo")
+    w, h, spp, b, seed = worker.JVP
+    tangents = worker.jvp_tangents(scene)
+    leaves = {k: scene_leaves(scene)[k] for k in tangents}
+    parts = [torch.func.jvp(
+        lambda lv: render(with_leaves(scene, lv), cam, w, h, spp // 2, b, seed=seed,
+                          sample_offset=k * (spp // 2))[0], (leaves,), (tangents,))
+        for k in range(2)]
+    got = worlds[size][0]
+    for i, name in enumerate(("image", "tangent")):
+        want = (parts[0][i] + parts[1][i]) / 2.0
+        np.testing.assert_array_equal(_bits(got[f"{case}/{name}"]), _bits(want.numpy()))
+    assert float(np.abs(got[f"{case}/tangent"]).max()) > 0
 
 
 @pytest.mark.parametrize("size,case,n_spp", SPP_CASES, ids=["samples-1x2", "both-2x2"])

@@ -31,6 +31,7 @@ from raytracingc_tpu_torch.camera import primary_rays  # noqa: E402
 PX = (16, 16, 2, 3, 3)
 PX_UNEVEN = (18, 17, 2, 3, 0)  # 306 px: 306 % 4 == 2, padding lanes
 SAMPLES = (16, 16, 16, 3, 3)
+JVP = (8, 8, 4, 3, 3)  # the forward-mode renders (samples, both)
 PROGRESSIVE = (16, 16, 4, 2, 9)
 PROGRESSIVE_BATCH = 2
 BLOCKS = (16, 16, 2, 3, 5)
@@ -113,6 +114,35 @@ def case_render(data, size, scene, run, strategy=None, mesh_shape=None,
             load_scene(data, scene), _camera(data), w, h, spp=spp, max_bounce=b,
             seed=seed, strategy=strategy or "pixels", mesh=mesh,
             scene_sharding=scene_sharding))
+
+
+def jvp_tangents(scene) -> dict:
+    """The forward-mode cases' tangents: ones on the triangles' albedo and
+    emission and on the environment's ground colour."""
+    from raytracingc_tpu_torch.scene.types import scene_leaves
+
+    return {k: torch.ones_like(t) for k, t in scene_leaves(scene).items()
+            if k in (".triangles.albedo", ".triangles.emission", ".env.ground")}
+
+
+def case_jvp(data, size, strategy):
+    """torch.func.jvp of a sharded render (production mode) along
+    :func:`jvp_tangents`: the image, its tangent and the traced rays."""
+    from raytracingc_tpu_torch.parallel import render_sharded
+    from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+    w, h, spp, b, seed = JVP
+    scene = load_scene(data, "demo")
+    tangents = jvp_tangents(scene)
+    leaves = {k: scene_leaves(scene)[k] for k in tangents}
+    def fn(lv):
+        img, n = render_sharded(with_leaves(scene, lv), _camera(data), w, h,
+                                spp=spp, max_bounce=b, seed=seed,
+                                strategy=strategy, mesh=_mesh(size // 2, 2))
+        return img, torch.tensor(n)  # jvp's aux holds tensors only
+
+    img, dot, n = torch.func.jvp(fn, (leaves,), (tangents,), has_aux=True)
+    return {"image": img.numpy(), "tangent": dot.numpy(), "count": n.numpy()}
 
 
 def case_merge(data, size, scene, knobs=None):
@@ -223,6 +253,7 @@ CASES = {
         "samples": lambda data, n: case_render(data, n, "demo", SAMPLES,
                                                strategy="samples"),
         "train_1x2": lambda data, n: case_train(data, n, (1, 2)),
+        "jvp_samples": lambda data, n: case_jvp(data, n, "samples"),
         "progressive": case_progressive,
         "progressive_bad_batch": case_progressive_bad_batch,
         "fit": case_fit,
@@ -234,6 +265,7 @@ CASES = {
         "both": lambda data, n: case_render(data, n, "demo", SAMPLES,
                                             strategy="both"),
         "train_2x2": lambda data, n: case_train(data, n, (2, 2)),
+        "jvp_both": lambda data, n: case_jvp(data, n, "both"),
         "blocks_both": lambda data, n: case_render(
             data, n, "box_blocks", BLOCKS, mesh_shape=(2, 2),
             scene_sharding="blocks"),
