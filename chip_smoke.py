@@ -465,14 +465,6 @@ def phase(name: str, t0: float, msg: str) -> None:
     print(f"[{name}] {time.time() - t0:.3f}s {msg}", flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
-
-
 def counted(kernels: dict, totals: dict, expect: str, label: str, fn):
     """Run ``fn()`` with every kernel's launch count set to 0 just before it
     and read just after; add the counts to ``totals``. Raises unless
@@ -2246,7 +2238,9 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: {BOX_SCENE} is missing")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
+    smi = tools.card_name()
+    if not smi:
+        raise SystemExit("chip_smoke: nvidia-smi did not report the card")
 
     # 1. Device.
     phase("device", t0, f"{kind}; torch {torch.__version__}, CUDA "
@@ -2722,7 +2716,7 @@ def main() -> int:
          bound(smem_work[0], 0, smem_work[1]), 0.0),
     ]
     phase("total", t0, "chip_smoke.py up to the kernel line")
-    print(nvidia_smi())
+    print(smi)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -4,22 +4,8 @@ albedo, optionally over a ``parallel.make_mesh`` mesh), ``inverse_camera``
 (the camera pose), ``inverse_sphere`` (a sphere's center) and
 ``inverse_vertices`` (a mirror triangle's depth). Each is the counterpart of
 the JAX package's ``examples/inverse_*.py``, with the same scene, parameters
-and return values, plus ``--device`` (default ``cuda``; a missing card
-raises). ``demo`` holds the procedural demo scene they share with the tests.
+and return values, plus ``--device`` (``main``'s ``device``; default
+``cuda``, and a missing card raises, as ``tools.device_arg`` checks).
+``demo`` holds the procedural demo scene they share with the tests.
 Importing one runs nothing.
 """
-
-import os
-
-BOX_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                         "examples", "box_scene.txt")
-
-
-def device_arg(name: str) -> "torch.device":
-    """The ``--device`` choice as a device; ``cuda`` without a card raises,
-    it never falls back to the CPU."""
-    import torch
-
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    return torch.device(name)

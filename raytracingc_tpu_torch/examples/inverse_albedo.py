@@ -28,10 +28,10 @@ import torch
 
 from raytracingc_tpu_torch.camera import Camera
 from raytracingc_tpu_torch.diff import fit_scene
-from raytracingc_tpu_torch.examples import BOX_SCENE, device_arg
 from raytracingc_tpu_torch.render.image import tonemap_to_bytes, write_image
 from raytracingc_tpu_torch.render.renderer import render
 from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+from raytracingc_tpu_torch.tools import BOX_SCENE, device_arg
 
 WALL = slice(2, 4)  # the back wall's two triangles
 # The JAX example's noise on those rows: jax.random.uniform(PRNGKey(0),

@@ -21,9 +21,9 @@ import torch
 
 from raytracingc_tpu_torch.camera import Camera, look_at_basis, primary_rays
 from raytracingc_tpu_torch.diff import fit_camera
-from raytracingc_tpu_torch.examples import device_arg
 from raytracingc_tpu_torch.examples.demo import demo_scene
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
+from raytracingc_tpu_torch.tools import device_arg
 
 TRUE_ORIGIN = (-4.75, -1.5, -4.75)
 TRUE_LOOK = (0.9, -1.2, 1.0)
@@ -47,7 +47,8 @@ def perturbed(cam_true: Camera) -> Camera:
 
 
 def main(steps: int = 250, size: int = 40, spp: int = 2, max_bounce: int = 2,
-         device="cpu"):
+         device="cuda"):
+    device = device_arg(device)
     scene = demo_scene(device)
     cam_true = Camera.look_at(TRUE_ORIGIN, TRUE_LOOK, device=device)
     o, d = primary_rays(cam_true, size, size)
@@ -77,4 +78,4 @@ if __name__ == "__main__":
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--max-bounce", type=int, default=2)
     args = ap.parse_args()
-    main(args.steps, args.size, args.spp, args.max_bounce, device_arg(args.device))
+    main(args.steps, args.size, args.spp, args.max_bounce, args.device)

@@ -21,11 +21,11 @@ import torch
 
 from raytracingc_tpu_torch.camera import Camera
 from raytracingc_tpu_torch.diff import fit_scene
-from raytracingc_tpu_torch.examples import device_arg
 from raytracingc_tpu_torch.examples.demo import built, sun_env
 from raytracingc_tpu_torch.render.renderer import render
 from raytracingc_tpu_torch.scene.builder import triangles_from_arrays
 from raytracingc_tpu_torch.scene.types import Scene, Spheres
+from raytracingc_tpu_torch.tools import device_arg
 
 
 def make_scene(offset=(0.0, 0.0, 0.0), device="cpu") -> Scene:
@@ -45,7 +45,8 @@ def make_scene(offset=(0.0, 0.0, 0.0), device="cpu") -> Scene:
     return built(tris, spheres, env).with_accel().to(device)
 
 
-def main(steps: int = 250, perturb=(0.15, -0.12, 0.2), device="cpu"):
+def main(steps: int = 250, perturb=(0.15, -0.12, 0.2), device="cuda"):
+    device = device_arg(device)
     cam = Camera.look_at(origin=[0.0, -0.5, 0.0], target=[0.0, -0.2, 3.0],
                          device=device)
     w = h = 32
@@ -70,4 +71,4 @@ if __name__ == "__main__":
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--steps", type=int, default=250)
     args = ap.parse_args()
-    main(args.steps, device=device_arg(args.device))
+    main(args.steps, device=args.device)

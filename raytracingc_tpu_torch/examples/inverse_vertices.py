@@ -25,11 +25,11 @@ import torch
 
 from raytracingc_tpu_torch.camera import Camera
 from raytracingc_tpu_torch.diff import fit_scene
-from raytracingc_tpu_torch.examples import device_arg
 from raytracingc_tpu_torch.examples.demo import built, sun_env
 from raytracingc_tpu_torch.render.renderer import render
 from raytracingc_tpu_torch.scene.builder import triangles_from_arrays
 from raytracingc_tpu_torch.scene.types import Scene, Spheres
+from raytracingc_tpu_torch.tools import device_arg
 
 VERTICES = (".triangles.a", ".triangles.b", ".triangles.c")
 
@@ -68,7 +68,8 @@ def z_translation_filter(grads: dict) -> dict:
     return out
 
 
-def main(steps: int = 80, perturb: float = 0.08, device="cpu"):
+def main(steps: int = 80, perturb: float = 0.08, device="cuda"):
+    device = device_arg(device)
     cam = Camera.look_at(origin=[0.0, 0.0, 0.0], target=[0.0, 0.0, 1.0],
                          device=device)
     w = h = 32
@@ -99,4 +100,4 @@ if __name__ == "__main__":
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--steps", type=int, default=80)
     args = ap.parse_args()
-    main(args.steps, device=device_arg(args.device))
+    main(args.steps, device=args.device)

@@ -19,7 +19,8 @@ and one process per rank in place of ``shard_map``:
   (``torch.func.jvp``, ``forward_ad``): the spp mean's tangent is the mean
   of the ranks' tangents and the px gather gathers them, as JAX's ``pmean``
   and ``all_gather`` differentiate, so every rank holds the tangent of the
-  whole image.
+  whole image. Reverse mode through it raises; :func:`make_train_step`
+  trains.
 * The traced-ray count is summed over both dimensions (exact integers; a
   padding ray is never counted).
 * **Blocks** (``scene_sharding="blocks"``): each ``px`` rank holds a
@@ -334,11 +335,12 @@ class _SppMean(torch.autograd.Function):
 
 class _PxGather(torch.autograd.Function):
     """The ``px`` ranks' radiance blocks gathered in rank order,
-    differentiable in both modes: the tangent is the gathered tangents
-    (JAX's ``all_gather``); the cotangent of a rank's own block is its rows
-    of the image's cotangent (each rank holds the same loss of the whole
-    image, and :func:`make_train_step`'s convention sums the ranks'
-    gradients)."""
+    differentiable in forward mode: the tangent is the gathered tangents
+    (JAX's ``all_gather``). Reverse mode through :func:`render_sharded`
+    raises: its gradients would be per rank and in
+    :func:`make_train_step`'s convention (summed over the mesh, then
+    divided by the spp size), which a caller's ``backward`` does not apply;
+    :func:`make_train_step` is the reverse-mode path."""
 
     @staticmethod
     def forward(radiance, mesh):
@@ -347,7 +349,6 @@ class _PxGather(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.mesh = inputs[1]
-        ctx.rows = inputs[0].shape[0]
 
     @staticmethod
     def jvp(ctx, tangent, _):
@@ -355,8 +356,9 @@ class _PxGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        p, _ = mesh_coords(ctx.mesh)
-        return grad[p * ctx.rows:(p + 1) * ctx.rows], None
+        raise RuntimeError("render_sharded has no reverse mode: train through "
+                           "make_train_step (or fit_scene(mesh=)); forward mode "
+                           "(torch.func.jvp, forward_ad) works")
 
 
 def make_train_step(mesh: DeviceMesh | None, optimizer: torch.optim.Optimizer,

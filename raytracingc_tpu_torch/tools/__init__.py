@@ -10,12 +10,28 @@ timed on their ray sets),
 ``granule_analysis`` (the dead MT work inside set granule bits of the words
 route at streamed scale). ``packets`` holds the seeded
 packet workloads they, chip_smoke.py and the tests share. Importing one runs
-nothing.
+nothing. This module holds what the tools and the examples share: the
+in-repo scene, the ``--device`` check, timing, the card's name and the
+knobs' context.
 """
 
 import contextlib
 import os
 import subprocess
+
+BOX_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                         "examples", "box_scene.txt")
+
+
+def device_arg(name) -> "torch.device":
+    """A ``--device`` choice (a name or a device) as a device; ``cuda``
+    without a card raises, it never falls back to the CPU."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
+    return device
 
 
 def cuda_ms(fn, iters: int) -> float:

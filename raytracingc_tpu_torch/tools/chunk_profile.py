@@ -33,9 +33,9 @@ from raytracingc_tpu_torch.ops import search
 from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
 from raytracingc_tpu_torch.ops.search_packed import search_packed
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
-from raytracingc_tpu_torch.tools import cuda_ms
+from raytracingc_tpu_torch.tools import BOX_SCENE, cuda_ms
 from raytracingc_tpu_torch.tools.packets import packet_inputs
-from raytracingc_tpu_torch.tools.union_walk_ab import BOX_SCENE, load_scene
+from raytracingc_tpu_torch.tools.union_walk_ab import load_scene
 
 CHUNK = 65536  # the renderer's default pixel chunk
 

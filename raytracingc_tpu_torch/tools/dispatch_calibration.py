@@ -43,8 +43,8 @@ from raytracingc_tpu_torch.camera import Camera
 from raytracingc_tpu_torch.ops import search
 from raytracingc_tpu_torch.render.image import bmp_bytes, tonemap_to_bytes
 from raytracingc_tpu_torch.render.renderer import render
-from raytracingc_tpu_torch.tools import card_name, knobs_set
-from raytracingc_tpu_torch.tools.union_walk_ab import BOX_SCENE, load_scene
+from raytracingc_tpu_torch.tools import BOX_SCENE, card_name, device_arg, knobs_set
+from raytracingc_tpu_torch.tools.union_walk_ab import load_scene
 
 # (tessellation level, width, height, spp): the JAX tool's two call widths.
 GRID = ((3, 128, 128, 64), (4, 128, 128, 64), (4, 1920, 1080, 8),
@@ -60,9 +60,8 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def calibrate(device, grid=GRID, legs=LEGS, reps: int = REPS,
-              max_bounce: int = MAX_BOUNCE, on_cell=None) -> list[dict]:
-    """Render every cell of ``grid`` in every leg of ``legs`` (``{name:
+def calibrate(device, grid=GRID, reps: int = REPS, on_cell=None) -> list[dict]:
+    """Render every cell of ``grid`` in every leg of :data:`LEGS` (``{name:
     RTC_* knobs}``) on ``device``; one dict per (cell, leg), in grid order
     and legs interleaved per cell: ``leg``, ``level``, ``n_live``,
     ``width``, ``height``, ``spp``, ``route`` (the ``ops.search.Route`` the
@@ -79,13 +78,13 @@ def calibrate(device, grid=GRID, legs=LEGS, reps: int = REPS,
             scenes[level] = load_scene(BOX_SCENE, level, device)
         scene = scenes[level]
         cell = []
-        for leg, env in legs.items():
+        for leg, env in LEGS.items():
             with knobs_set(env):
                 way = search.route(scene.n_triangles, scene.accel.n_blocks,
                                    search.Knobs.read())
 
                 def run():
-                    img, n = render(scene, cam, width, height, spp, max_bounce,
+                    img, n = render(scene, cam, width, height, spp, MAX_BOUNCE,
                                     seed=SEED)
                     _sync(device)
                     return img, n
@@ -148,9 +147,7 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    device = torch.device(args.device)
+    device = device_arg(args.device)
     print(f"# device {args.device}: {card_name() if args.device == 'cuda' else 'CPU'}",
           flush=True)
     rows = calibrate(device, GRID, on_cell=lambda r: print(line(r), flush=True))

@@ -50,8 +50,8 @@ import torch
 from raytracingc_tpu_torch.camera import Camera, primary_rays
 from raytracingc_tpu_torch.ops import culling
 from raytracingc_tpu_torch.ops.accel import BLOCK, TriangleAccel
-from raytracingc_tpu_torch.tools import card_name
-from raytracingc_tpu_torch.tools.union_walk_ab import BOX_SCENE, load_scene
+from raytracingc_tpu_torch.tools import BOX_SCENE, card_name, device_arg
+from raytracingc_tpu_torch.tools.union_walk_ab import load_scene
 
 CHUNK = 65536  # rays per chunk (the renderer's pixel chunk)
 SLAB = 64  # granule groups per slab test (the JAX tool's lax.map slab)
@@ -141,9 +141,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--tessellate", type=int, default=7,
                    help="box_scene's level: 7 (163,840) or 8 (655,360 triangles)")
     args = p.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    device = torch.device(args.device)
+    device = device_arg(args.device)
     print(f"# device {args.device}: {card_name() if args.device == 'cuda' else 'CPU'}",
           flush=True)
     scene = load_scene(BOX_SCENE, args.tessellate, device)

@@ -68,7 +68,7 @@ from raytracingc_tpu_torch.ops.search_words import (
     search_words,
     search_words_reference,
 )
-from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
+from raytracingc_tpu_torch.tools import BOX_SCENE, cuda_ms, knobs_set
 from raytracingc_tpu_torch.tools.packets import (
     DEAD,
     RAY_SETS,
@@ -77,7 +77,7 @@ from raytracingc_tpu_torch.tools.packets import (
     soup_scene,
     wide_span_rays,
 )
-from raytracingc_tpu_torch.tools.union_walk_ab import BOX_SCENE, load_scene
+from raytracingc_tpu_torch.tools.union_walk_ab import load_scene
 
 # (label, box_scene tessellation levels or a soup's triangle count, knobs)
 # of chip_smoke.py's timed K2-K9 cases.

@@ -39,10 +39,7 @@ from raytracingc_tpu_torch.ops.search_bitmask import bitmask_table, search_bitma
 from raytracingc_tpu_torch.ops.search_union import search_union
 from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt, tessellate
 from raytracingc_tpu_torch.scene.types import MISS_DST
-from raytracingc_tpu_torch.tools import cuda_ms
-
-BOX_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                         "examples", "box_scene.txt")
+from raytracingc_tpu_torch.tools import BOX_SCENE, cuda_ms
 
 
 def load_scene(path: str, levels: int, device):

@@ -44,13 +44,14 @@ def _one_torch_thread_clean_knobs(monkeypatch):
     torch.set_num_threads(n)
 
 
-def test_dispatch_legs_equal_bits_counts_and_routes():
+def test_dispatch_legs_equal_bits_counts_and_routes(monkeypatch):
     """box_scene --tessellate 3 at 16x16, spp 2, 2 bounces: the brute and
     packet legs write the same BMP bytes and trace the same rays; brute
     routes to K1, packet to the bitmask kernel K2."""
+    monkeypatch.setattr(dispatch_calibration, "MAX_BOUNCE", 2)
     launched = []
     rows = dispatch_calibration.calibrate(
-        torch.device("cpu"), grid=((3, 16, 16, 2),), reps=1, max_bounce=2,
+        torch.device("cpu"), grid=((3, 16, 16, 2),), reps=1,
         on_cell=lambda r: launched.append((r["leg"], os.environ.get("RTC_BRUTE_MAX"))))
     brute, packet = rows
     assert (brute["leg"], packet["leg"]) == ("brute", "packet")

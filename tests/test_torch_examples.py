@@ -19,12 +19,13 @@ import torch
 
 from raytracingc_tpu.scene.builder import scene_from_triangles_txt as j_from_txt
 from raytracingc_tpu_torch import bridge
-from raytracingc_tpu_torch.examples import BOX_SCENE, demo
+from raytracingc_tpu_torch.examples import demo
 from raytracingc_tpu_torch.examples import inverse_albedo as albedo_ex
 from raytracingc_tpu_torch.examples import inverse_camera as camera_ex
 from raytracingc_tpu_torch.examples import inverse_sphere as sphere_ex
 from raytracingc_tpu_torch.examples import inverse_vertices as vertices_ex
 from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+from raytracingc_tpu_torch.tools import BOX_SCENE
 from test_torch_accel import assert_accels_equal
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
@@ -87,6 +88,18 @@ def test_albedo_corruption_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("example", ["albedo", "camera", "sphere", "vertices"])
+def test_examples_default_to_the_card(monkeypatch, example):
+    """Each example's ``main`` runs on the card unless asked for the CPU: its
+    default device is cuda, and without a card it raises before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = {"albedo": albedo_ex, "camera": camera_ex, "sphere": sphere_ex,
+           "vertices": vertices_ex}[example]
+    call = (lambda: mod.main([])) if example == "albedo" else (lambda: mod.main(steps=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
 def test_inverse_albedo_recovers(tmp_path):
     """examples/inverse_albedo.py's own bar at its defaults (80 steps): exit
     0, the wall's albedo error fell; it writes its three images."""
@@ -97,20 +110,20 @@ def test_inverse_albedo_recovers(tmp_path):
 
 def test_inverse_vertices_recovers():
     """tests/test_diff.py::test_vertex_geometry_recovery_end_to_end."""
-    losses, l1_0, l1_1 = vertices_ex.main(steps=60)
+    losses, l1_0, l1_1 = vertices_ex.main(steps=60, device="cpu")
     assert losses[-1] < 0.1 * losses[0], (losses[0], losses[-1])
     assert l1_1 < 0.25 * l1_0, (l1_0, l1_1)
 
 
 def test_inverse_camera_recovers():
     """tests/test_diff.py::test_camera_pose_recovery_end_to_end."""
-    losses, e0, e1 = camera_ex.main(steps=120)
+    losses, e0, e1 = camera_ex.main(steps=120, device="cpu")
     assert losses[-1] < 0.2 * losses[0], (losses[0], losses[-1])
     assert e1 < 0.25 * e0, (e0, e1)
 
 
 def test_inverse_sphere_recovers():
     """tests/test_diff.py::test_sphere_center_recovery_end_to_end."""
-    losses, c0, c1 = sphere_ex.main(steps=150)
+    losses, c0, c1 = sphere_ex.main(steps=150, device="cpu")
     assert losses[-1] < 0.2 * losses[0], (losses[0], losses[-1])
     assert c1 < 0.25 * c0, (c0, c1)

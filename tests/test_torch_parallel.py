@@ -502,6 +502,30 @@ def test_implicit_world_builds_each_mesh_once(port):
     assert b is not a and make_mesh(1, 1, device_type="cpu") is b
 
 
+def test_render_sharded_reverse_mode_raises(port):
+    """Reverse mode through render_sharded raises (its gradients would be
+    per rank, in make_train_step's convention); forward mode through the
+    same call on a one-rank mesh gives the one-device jvp bit for bit."""
+    load, cam = port
+    scene = load("demo")
+    mesh = make_mesh(1, 1, device_type="cpu")
+    leaves = {".triangles.albedo": scene_leaves(scene)[".triangles.albedo"]}
+    tangents = {k: torch.ones_like(t) for k, t in leaves.items()}
+    albedo = leaves[".triangles.albedo"].clone().requires_grad_(True)
+    img, _ = render_sharded(with_leaves(scene, {".triangles.albedo": albedo}), cam,
+                            4, 4, spp=2, max_bounce=2, mesh=mesh, strategy="samples",
+                            early_exit=False)
+    with pytest.raises(RuntimeError, match="make_train_step"):
+        img.sum().backward()
+    fn = lambda sharded: lambda lv: (render_sharded if sharded else render)(
+        with_leaves(scene, lv), cam, 4, 4, 2, 2,
+        **({"mesh": mesh, "strategy": "samples"} if sharded else {}))[0]
+    got = torch.func.jvp(fn(True), (leaves,), (tangents,))
+    want = torch.func.jvp(fn(False), (leaves,), (tangents,))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w.numpy()))
+
+
 def test_dryrun_multichip_four_ranks(worlds):
     """The port's dryrun_multichip(4) ran on every rank of the 4-rank world
     (it raises on a non-finite loss or a broken blocks identity)."""

@@ -17,6 +17,16 @@ normals and vertices b, c against a 0.9-dimmed target) and ``fit_camera``
 --tessellate 2 at 16x16, spp 2, 4 bounces, lr 1e-3, 5 steps: the loss
 sequences agree within 1e-5 relative per step (observed: 2e-7). Both rise
 in both packages (the reference's own behaviour, recorded in ROADMAP).
+
+C3, the camera example's fit (``examples/inverse_camera.py`` and the port's,
+through ``tests/camera_fit_witness.py``). At each camera of JAX's fit up to
+its step 8, the port's loss is within 1e-5 relative of JAX's and its image
+within 1e-4 of JAX's on every pixel: the per-step function is JAX's. Each
+package on its own trajectory: the first 8 losses within 1e-4 relative and
+the cameras after 8 steps within 1e-4 (the cameras drift apart by float32
+rounding of the gradients; at step 8 the drift flips one primary ray from
+the sphere to a triangle and the fits part, which the witness script
+prints).
 """
 
 import dataclasses
@@ -38,6 +48,7 @@ from raytracingc_tpu_torch.camera import primary_rays
 from raytracingc_tpu_torch.diff import fd_check, fit_camera, fit_scene
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
 from raytracingc_tpu_torch.render.renderer import render
+import camera_fit_witness as witness
 from test_torch_diff import demo, port_scene, untied  # noqa: F401  (fixtures)
 
 BOX_SCENE = os.path.join(os.path.dirname(__file__), "..", "examples", "box_scene.txt")
@@ -52,6 +63,11 @@ FIT = dict(spp=2, max_bounce=4)
 FIT_LEVEL, FIT_SIZE, FIT_STEPS, FIT_LR = 2, 16, 5, 1e-3
 FIT_GEOMETRY = ["triangles.normal", "triangles.b", "triangles.c"]
 LOSS_RTOL = 1e-5
+# The camera example: its first 8 steps, and 9 of JAX's cameras (through
+# step 8, where a primary ray flips and the two free fits part).
+CAMERA_STEPS = 8
+PIXEL_ATOL = 1e-4  # the forced images, per pixel (observed: 5.6e-5)
+FREE_RTOL = 1e-4  # the free fits' losses and cameras (observed: 1.6e-5, 4.4e-5)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,3 +141,30 @@ def test_fit_losses_match_jax(fit_inputs, fit):
             learning_rate=FIT_LR, **FIT)
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, atol=0)
     assert len(got) == FIT_STEPS
+
+
+@pytest.fixture(scope="module")
+def camera_example():
+    return witness.inputs()
+
+
+def test_camera_example_matches_jax_at_its_cameras(camera_example):
+    """At each of JAX's cameras of the example's fit through step 8, the
+    port's loss is JAX's within LOSS_RTOL (observed: 2.2e-6) and its image
+    within PIXEL_ATOL on every pixel."""
+    rows = witness.forced(CAMERA_STEPS + 1, camera_example)
+    np.testing.assert_allclose([r["port"] for r in rows], [r["jax"] for r in rows],
+                               rtol=LOSS_RTOL, atol=0)
+    assert max(r["max_pixel"] for r in rows) < PIXEL_ATOL, rows
+
+
+def test_camera_example_fit_tracks_jax(camera_example):
+    """Each package's own fit of the example: the first CAMERA_STEPS losses
+    within FREE_RTOL relative of JAX's, and the two cameras after them
+    within FREE_RTOL of each other."""
+    jl, tl, jc, tc = witness.free(CAMERA_STEPS, camera_example)
+    assert len(tl) == len(jl) == CAMERA_STEPS
+    np.testing.assert_allclose(tl, jl, rtol=FREE_RTOL, atol=0)
+    for f in ("origin", "ez"):
+        np.testing.assert_allclose(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)),
+                                   rtol=0, atol=FREE_RTOL, err_msg=f)
