@@ -15,11 +15,13 @@ a checkpointed resume), then the multi-rank layer: a world of one rank over
 NCCL in this process, and two ranks on the one card over gloo in child
 processes of this script (``--parallel-rank``), then the last entry points:
 forward-mode derivatives through the production render (``torch.func.jvp``,
-``forward_ad``; also sample-sharded, in the child processes), the dispatch
+``forward_ad``; also sample-sharded, in the child processes;
+``torch.func.jacfwd`` and ``torch.func.vmap`` over cameras), the dispatch
 calibration grid, the granule counts and the four inverse-rendering
-examples. Each phase prints
-one line per step; any failure raises and the script exits non-zero without
-printing a result.
+examples. The integrator's modes include the widened ``sample_batch``
+path, timed against ``sample_batch=1`` and ``sample_group="auto"``. Each
+phase prints one line per step; any failure raises and the script exits
+non-zero without printing a result.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object describing each kernel (its time, its plain version's,
@@ -53,8 +55,10 @@ TIMED_N_LIVE = (10, 640)  # box_scene, and box_scene tessellated 64-fold
 TIMED_RAYS = 65536
 
 # Phase 3b: the packet kernels against their plain versions, bit for bit,
-# and their live-lane winners against the brute scan over all live
-# triangles. (label, scene, live triangles, knobs, expected kernel); the
+# and at TIMED_RAYS their live-lane winners against the brute scan over all
+# live triangles (the ragged ray count is held to the plain version only:
+# the torch brute scan of 163,840 triangles takes seconds a call). (label,
+# scene, live triangles, knobs, expected kernel); the
 # scene is a seeded soup or box_scene tessellated to that count, and the
 # label starts with the TPU kernel that the route stands for (checked).
 # Every case runs coherent packets (tools/packets.py packet_rays), and
@@ -348,6 +352,23 @@ MAX_COUNT_REL = 1e-3
 # tests/test_utils.py::test_early_exit_matches_scan) with equal counts.
 MODES_RUN = dict(width=1920, height=1080, spp=4, max_bounce=8)
 REASSOC = dict(rtol=3e-6, atol=3e-7)
+# The widened sample_batch path (its own association, sum_s(light0 +
+# rest_s), as the oracle's): sample_batch 2, 4 and "auto" (4 at 4 spp)
+# under production and under early_exit=False (the masked scan), on
+# MODES_RUN, and "auto" at 10,240 triangles (--tessellate 5, K2): counts
+# equal to production's, images within REASSOC. Then SB_ROUNDS alternating
+# rounds (each round's order reversed from the last; the phase's renders
+# before them warm the card) at SB_RUN of
+# sample_batch 1, "auto" and 8 and sample_group "auto", each render synced
+# and timed on the host's clock: the median wall, the search launches per
+# frame and rays/s; sample_batch 8 held to 1 (counts, REASSOC), "auto" to 8
+# and sample_group "auto" to 1 bit for bit.
+SB_K2_TESSELLATE = 5
+SB_RUN = dict(width=1920, height=1080, spp=8, max_bounce=8)
+SB_ROUNDS = 5
+SB_TIMED = {"sample_batch 1": {}, "sample_batch auto": dict(sample_batch="auto"),
+            "sample_batch 8": dict(sample_batch=8),
+            "sample_group auto": dict(sample_group="auto")}
 
 # Run (q): the training path on box_scene --tessellate 4 (2,560 triangles,
 # the bitmask route K2) at the JAX bench's train defaults (bench.py:76-82):
@@ -434,6 +455,20 @@ FWD_RUN = dict(width=1920, height=1080, spp=2, max_bounce=8)
 FWD_SMALL = dict(width=256, height=256, spp=2, max_bounce=8)
 FWD_REV_RTOL = 1e-4
 FWD_SEED = 20261017
+# Run (x''): torch.func.jacfwd of a JAC_RUN render of box_scene (K1) by the
+# camera pose (origin, view direction: fit_camera's parameters) and the
+# albedo of triangles JAC_ROWS, through production and early_exit=False:
+# every column within JAC_REL (of the column's largest |entry|) of the
+# one-direction torch.func.jvp's (the CPU tests read them equal bit for
+# bit), K1 launched exactly as often as by one production render (the
+# search runs once on the primal, not once per direction). Then
+# torch.func.vmap of the production render over JAC_CAMERAS poses: each
+# image and count the separate render's, bit for bit.
+JAC_RUN = dict(width=32, height=32, spp=2, max_bounce=4)
+JAC_ROWS = (0, 3, 8)  # a wall, the floor and the ceiling emitter
+JAC_REL = 1e-6
+JAC_CAMERAS = ((0.0, 0.0, 0.0, 0.0, 0.0, 0.0), (0.3, -0.1, 0.2, 0.0, 0.05, 0.0),
+               (-0.2, 0.1, 0.0, 0.04, 0.0, -0.03))  # offsets of the pose
 # Run (y), raytracingc_tpu_torch/tools/dispatch_calibration.py's grid
 # through its calibrate(): both legs in this process, each (cell, leg)
 # counted on its own (the brute leg launches only K1, the packet leg only
@@ -862,7 +897,6 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                 table = range_table(first, last, plane.shape[1] // BLOCK)
             dk, ik = kern(*args)
             dr, ir = plain(*args)
-            db, ib = search_brute_reference(o, d, brute_tri, n, alive)
             torch.cuda.synchronize()
             where = f"{label}{suffix} R={n_rays}"
             if not torch.equal(ik, ir):
@@ -870,10 +904,12 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                                      f"version on {int((ik != ir).sum())} rays")
             if not torch.equal(dk.view(torch.int32), dr.view(torch.int32)):
                 raise AssertionError(f"{where}: dst bits differ from the plain version")
-            if not (torch.equal(ik[alive], ib[alive]) and torch.equal(
-                    dk[alive].view(torch.int32), db[alive].view(torch.int32))):
-                raise AssertionError(f"{where}: live lanes differ from the brute "
-                                     f"scan on {int((ik != ib)[alive].sum())} rays")
+            if n_rays == TIMED_RAYS:
+                db, ib = search_brute_reference(o, d, brute_tri, n, alive)
+                if not (torch.equal(ik[alive], ib[alive]) and torch.equal(
+                        dk[alive].view(torch.int32), db[alive].view(torch.int32))):
+                    raise AssertionError(f"{where}: live lanes differ from the brute "
+                                         f"scan on {int((ik != ib)[alive].sum())} rays")
             hits = int((ik[alive] >= 0).sum())
             if hits < n_rays // 100:
                 raise AssertionError(f"{where}: only {hits} live rays hit")
@@ -902,7 +938,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                     n_bytes(*args[:-2 if way.kernel in ("packed", "words")
                                   else None], dk, ik))
         phase("kernel", t, f"{label}: {name} == plain bitwise, live lanes == "
-              f"brute scan; {way.kernel} ({way.tpu}) tile={way.tile} "
+              f"brute scan at R={TIMED_RAYS}; {way.kernel} ({way.tpu}) tile={way.tile} "
               f"n_tiles={way.n_tiles} granule={way.granule}; " + "; ".join(notes))
     return timings, max_err, work
 
@@ -1368,33 +1404,34 @@ def l2_read_rate(dev) -> float:
     return a.numel() * 4 / (cuda_ms(lambda: a.sum(), 50) * 1e-3)
 
 
-def smem_times(probe) -> dict:
-    """K10's times at one launch, ``probe()`` calling its wrapper once:
+def split_times(call, kernel: str) -> dict:
+    """A kernel's times at one launch, ``call()`` calling its wrapper once:
     ``ms`` the call by CUDA events over 50 calls (host included: the kernel
     line's time), ``host`` the host's milliseconds per call (200 calls on a
-    clock with no sync between them; the device, ~2 us a launch, keeps up),
-    ``profiler`` the kernel's device duration per launch from
+    clock with no sync between them: the launch queue holds them, so a
+    slower device does not stall the host), ``profiler`` the device duration
+    per launch of the CUDA kernels whose name holds ``kernel``, from
     torch.profiler over 20 calls."""
     import torch
 
     from raytracingc_tpu_torch.tools import cuda_ms
 
-    out = {"ms": cuda_ms(probe, 50)}
+    out = {"ms": cuda_ms(call, 50)}
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(200):
-        probe()
+        call()
     out["host"] = (time.perf_counter() - t) / 200 * 1e3
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(20):
-            probe()
+            call()
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "device_time_total", 0) or getattr(
         e, "cuda_time_total", 0)
     durs = [dev_us(e) / max(e.count, 1) for e in prof.key_averages()
-            if "smem_probe" in e.key and dev_us(e) > 0]
+            if kernel in e.key and dev_us(e) > 0]
     out["profiler"] = durs[0] / 1e3 if durs else float("nan")
     return out
 
@@ -1406,7 +1443,7 @@ def check_smem_probe(dev):
     split of the staging) equal the plain version. Returns ``(limit bytes,
     {timing: ms} at the limit, (operations, bytes) the function needs, the
     bytes the CTAs stage, the ladder's [(n, equal, refusal)])``. Timings:
-    :func:`smem_times`; ``set every call`` the events' time with the limit
+    :func:`split_times`; ``set every call`` the events' time with the limit
     raised again before each launch (the parent's host work); ``device``
     100 launches from one C call between two events, per launch; ``plain``
     the plain version."""
@@ -1440,7 +1477,7 @@ def check_smem_probe(dev):
     # per element of x: one add.
     tiles = x.shape[0] // sp.TILE_ROWS
     work = (x.numel() + 3 * tiles, n_bytes(x, out) + 3 * 4 * tiles)
-    ms = smem_times(lambda: sp.smem_probe(sm, x))
+    ms = split_times(lambda: sp.smem_probe(sm, x), "smem_probe")
     ms["set every call"] = cuda_ms(lambda: sp.smem_probe(sm, x, set_limit=True), 50)
     ms["device"] = cuda_ms(lambda: sp.smem_probe(sm, x, launches=100), 5) / 100
     ms["plain"] = cuda_ms(lambda: sp.smem_probe_reference(sm, x), 50)
@@ -1464,7 +1501,10 @@ def check_modes(dev, run=MODES_RUN) -> dict:
              "differentiable": dict(early_exit=False),
              "sample_group 2": dict(early_exit=False, sample_group=2),
              "sample_group auto": dict(early_exit=True, sample_group="auto"),
-             "oracle (compact=False)": dict(early_exit=False, compact=False)}
+             "oracle (compact=False)": dict(early_exit=False, compact=False),
+             **{f"sample_batch {sb}{' differentiable' if not ee else ''}":
+                dict(early_exit=ee, sample_batch=sb)
+                for ee in (True, False) for sb in (2, 4, "auto")}}
     out, imgs = {}, {}
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     with torch.no_grad():
@@ -1482,11 +1522,82 @@ def check_modes(dev, run=MODES_RUN) -> dict:
         if out[label][1] != n:
             raise AssertionError(f"modes {label}: {out[label][1]} traced rays, "
                                  f"production {n}")
-        if label.startswith("oracle"):
+        if label.startswith(("oracle", "sample_batch")):
             np.testing.assert_allclose(img.cpu().numpy(), prod.cpu().numpy(),
                                        **REASSOC)
         elif not torch.equal(img.view(torch.int32), prod.view(torch.int32)):
             raise AssertionError(f"modes {label}: not production's bits")
+
+    # sample_batch "auto" on the packet route (K2).
+    from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
+
+    big = train_scene(dev, SB_K2_TESSELLATE)
+    k2 = {}
+    with torch.no_grad():
+        for label, kw in (("production", {}), ("sample_batch auto", dict(
+                sample_batch="auto"))):
+            search_bitmask.launches = 0
+            t = time.time()
+            img, n = render(big, cam, **run, **kw)
+            sync()
+            k2[label] = (img, n, time.time() - t, search_bitmask.launches)
+    (k2_prod, k2_n, *_), (k2_img, k2_m, *_) = k2.values()
+    if k2_m != k2_n or (dev.type == "cuda" and min(v[3] for v in k2.values()) < 1):
+        raise AssertionError(f"modes K2: {k2_m} traced rays against production's "
+                             f"{k2_n}, K2 launches {[v[3] for v in k2.values()]}")
+    np.testing.assert_allclose(k2_img.cpu().numpy(), k2_prod.cpu().numpy(), **REASSOC)
+    for label, (_, n, sec, launches) in k2.items():
+        out[f"{label}, {big.n_triangles} triangles"] = (sec, n, launches)
+    return out
+
+
+def time_sample_batch(dev, run=SB_RUN, rounds=SB_ROUNDS) -> dict:
+    """Phase 6's timing: ``{variant: (walls, traced rays, search_brute
+    launches per frame)}`` over ``rounds`` alternating rounds; raises on a
+    broken identity."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.ops.search_brute import search_brute
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+
+    scene = scene_from_triangles_txt(BOX_SCENE).to(dev)
+    cam = Camera.look_at(device=dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    out = {k: ([], None, None) for k in SB_TIMED}
+    imgs = {}
+    order = list(SB_TIMED)
+    with torch.no_grad():
+        for r in range(rounds):  # round 0's images are checked
+            for label in (order if r % 2 == 0 else order[::-1]):
+                search_brute.launches = 0
+                sync()
+                t = time.time()
+                img, n = render(scene, cam, **run, **SB_TIMED[label])
+                sync()
+                sec = time.time() - t
+                walls, n0, k0 = out[label]
+                if r == 0:
+                    imgs[label] = img
+                    n0, k0 = n, search_brute.launches
+                    out[label] = (walls, n0, k0)
+                if (n, search_brute.launches) != (n0, k0):
+                    raise AssertionError(f"sample_batch timing {label}: round {r} "
+                                         f"traced {n} rays with {search_brute.launches}"
+                                         f" K1 launches, round 0 {n0} with {k0}")
+                walls.append(sec)
+    one, n1 = imgs["sample_batch 1"], out["sample_batch 1"][1]
+    if any(v[1] != n1 for v in out.values()):
+        raise AssertionError(f"sample_batch timing: traced rays "
+                             f"{ {k: v[1] for k, v in out.items()} }")
+    np.testing.assert_allclose(imgs["sample_batch 8"].cpu().numpy(),
+                               one.cpu().numpy(), **REASSOC)
+    for a, b in (("sample_batch auto", "sample_batch 8"),
+                 ("sample_group auto", "sample_batch 1")):
+        if not _same_bits(imgs[a], imgs[b]):
+            raise AssertionError(f"sample_batch timing: {a} is not {b}'s bits")
     return out
 
 
@@ -2102,6 +2213,98 @@ def check_forward_mode(dev, count) -> dict:
     return out, rel
 
 
+def pose_image(scene, fov, run, **mode):
+    """The production (or ``mode``'s) image of ``scene`` as a function of
+    ``p``: the camera's origin and view direction (``fit_camera``'s pose),
+    then the albedo of triangles :data:`JAC_ROWS`. Returns ``(image,
+    traced rays)``."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera, look_at_basis
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene.types import with_leaves
+
+    rows = torch.tensor(JAC_ROWS, device=scene.device)
+    albedo = scene.triangles.albedo
+
+    def image(p):
+        x, y, z = p[3:6].unbind(-1)
+        ex, ey, ez = look_at_basis(p[:3], p[:3] + p[3:6] / torch.sqrt(x * x + y * y + z * z))
+        s = with_leaves(scene, {".triangles.albedo": albedo.index_copy(
+            0, rows, p[6:].reshape(-1, 3))})
+        return render(s, Camera(origin=p[:3], ex=ex, ey=ey, ez=ez, fov=fov), **run,
+                      **mode)
+    return image
+
+
+def check_jacfwd(dev, count) -> dict:
+    """Run (x''). ``count`` as :func:`check_forward_mode`'s. Returns
+    ``{label: (seconds, K1 launches)}`` and the largest column difference
+    of jacfwd against the stacked jvps; raises on a broken identity."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    box = scene_from_triangles_txt(BOX_SCENE).to(dev)
+    cam = Camera.look_at(device=dev)
+    p = torch.cat([cam.origin, cam.ez, box.triangles.albedo[list(JAC_ROWS)].reshape(-1)])
+    out, worst = {}, 0.0
+
+    def timed(label, fn):
+        sync()
+        t = time.time()
+        result, k1 = count("search_brute", f"x'' {label}", lambda: (fn(), sync())[0])
+        out[label] = (time.time() - t, k1)
+        return result
+
+    for mode, kw in (("production", dict(early_exit=True)),
+                     ("differentiable", dict(early_exit=False))):
+        image = pose_image(box, cam.fov, JAC_RUN, **kw)
+        with torch.no_grad():
+            timed(f"render {mode}", lambda: image(p))
+        jac = timed(f"jacfwd {mode}", lambda: torch.func.jacfwd(
+            lambda q: image(q)[0])(p))
+        if out[f"jacfwd {mode}"][1] != out[f"render {mode}"][1]:
+            raise AssertionError(f"run x'': jacfwd {mode} launched K1 "
+                                 f"{out[f'jacfwd {mode}'][1]} times, one render "
+                                 f"{out[f'render {mode}'][1]}")
+        cols = timed(f"{p.numel()} jvps {mode}", lambda: torch.stack(
+            [torch.func.jvp(lambda q: image(q)[0], (p,), (e,))[1]
+             for e in torch.eye(p.numel(), device=dev)], dim=-1))
+        if not bool(torch.isfinite(jac).all()):
+            raise AssertionError(f"run x'': jacfwd {mode} is not finite")
+        scale = cols.abs().amax(dim=(0, 1, 2))
+        diff = (jac - cols).abs().amax(dim=(0, 1, 2))
+        rel = float((diff / torch.where(scale > 0, scale, 1.0)).max())
+        if rel > JAC_REL or float(scale.max()) == 0:
+            raise AssertionError(f"run x'': jacfwd {mode} against the stacked jvps: "
+                                 f"{rel:.3g} of a column's largest entry (> {JAC_REL})")
+        worst = max(worst, rel)
+
+    image = pose_image(box, cam.fov, JAC_RUN, early_exit=True)
+    poses = p[:6] + torch.tensor(JAC_CAMERAS, device=dev)
+    rest = p[6:]
+    with torch.no_grad():
+        imgs, counts = timed("vmap cameras", lambda: torch.func.vmap(
+            lambda q: tuple(torch.as_tensor(x) for x in image(torch.cat([q, rest]))))(
+                poses))
+        one = [timed(f"render camera {k}", lambda: image(torch.cat([poses[k], rest])))
+               for k in range(len(JAC_CAMERAS))]
+    for k, (img, n) in enumerate(one):
+        if not _same_bits(imgs[k], img) or int(counts[k]) != n:
+            raise AssertionError(f"run x'': vmap camera {k} is not its render's bits "
+                                 f"({int(counts[k])} against {n} rays)")
+    # The vmap searches the lanes live in any camera, once per camera a call,
+    # for as many bounces as the longest-lived camera needs.
+    v, b = out["vmap cameras"][1], len(JAC_CAMERAS)
+    if v % b or v < sum(out[f"render camera {k}"][1] for k in range(b)):
+        raise AssertionError(f"run x'': the vmap launched K1 {v} times, not once "
+                             f"per camera a search")
+    return out, worst
+
+
 def run_dispatch(dev, kernels, totals) -> tuple:
     """Run (y): the dispatch grid through ``calibrate``; each (cell, leg)
     counted on its own. Returns the rows and the crossover."""
@@ -2276,7 +2479,7 @@ def main() -> int:
     rng = np.random.default_rng(20261016)
     max_abs = 0.0
     n_cases = 0
-    timings, brute_work = {}, {}
+    timings, brute_work, brute_split = {}, {}, {}
     for n_live in PHASE3_N_LIVE:
         for n_rays in PHASE3_RAYS:
             tri, o, d, alive = random_soup(rng, n_live, n_rays)
@@ -2296,14 +2499,20 @@ def main() -> int:
             max_abs = max(max_abs, float((dk - dr).abs().max()))
             n_cases += 1
             if n_rays == TIMED_RAYS and n_live in TIMED_N_LIVE:
+                split = split_times(lambda: search_brute(*args, n_live, alive_t),
+                                    "search_brute")
                 timings[n_live] = (
-                    cuda_ms(lambda: search_brute(*args, n_live, alive_t), 50),
+                    split["ms"],
                     cuda_ms(lambda: search_brute_reference(*args, n_live, alive_t), 10),
                 )
+                brute_split[n_live] = split
                 brute_work[n_live] = (n_rays * n_live,
                                       n_bytes(*args, alive_t, dk, ik))
     times = ", ".join(
-        f"n_live={n}: kernel {k:.4f} ms, plain {p:.4f} ms"
+        f"n_live={n}: kernel {k:.4f} ms (host {brute_split[n]['host']:.4f} ms a "
+        f"call, device {brute_split[n]['profiler']:.4f} ms a launch by "
+        f"torch.profiler), plain {p:.4f} ms, bound "
+        f"{bound(brute_work[n][0] * MT_OPS, 0, brute_work[n][1])[0]:.4f} ms"
         for n, (k, p) in sorted(timings.items())
     )
     phase("kernel", t, f"search_brute == search_brute_reference bitwise on "
@@ -2524,9 +2733,20 @@ def main() -> int:
     t = time.time()
     modes = check_modes(dev)
     phase("modes", t, f"{MODES_RUN}: differentiable, sample_group 2 and auto == "
-          f"production bitwise, oracle within {REASSOC}, counts equal; " + ", ".join(
-              f"{k} {s:.3f}s ({n} rays, {k1} search_brute launches)"
+          f"production bitwise, oracle and sample_batch 2 / 4 / auto (production "
+          f"and differentiable; auto also at --tessellate {SB_K2_TESSELLATE}, K2) "
+          f"within {REASSOC}, counts equal; " + ", ".join(
+              f"{k} {s:.3f}s ({n} rays, {k1} "
+              f"{'search_bitmask' if 'triangles' in k else 'search_brute'} launches)"
               for k, (s, n, k1) in modes.items()))
+    t = time.time()
+    sb = time_sample_batch(dev)
+    phase("modes", t, f"{smi}; {SB_RUN}, box_scene, {SB_ROUNDS} alternating "
+          f"rounds: sample_batch 8 within {REASSOC} of 1, auto == 8 and "
+          f"sample_group auto == 1 bitwise, counts equal; " + "; ".join(
+              f"{k}: median {np.median(w):.3f}s (min {min(w):.3f}, max {max(w):.3f}), "
+              f"{k1} search_brute launches/frame, {n / np.median(w):.4e} rays/s"
+              for k, (w, n, k1) in sb.items()))
 
     # Run (q): the training path, counted like the main runs.
     t = time.time()
@@ -2653,6 +2873,16 @@ def main() -> int:
           f"sample-sharded jvp == the mean of the offset one-device jvps "
           f"bitwise (" + ", ".join(f"rank {i} {sec:.3f}s" for i, (sec, _)
                                    in enumerate(w_jvp)) + ")")
+
+    t = time.time()
+    jac, jac_rel = check_jacfwd(dev, count)
+    phase("forward", t, f"x'': {JAC_RUN}, box_scene, torch.func.jacfwd by the "
+          f"pose and the albedo of triangles {JAC_ROWS}: == the stacked "
+          f"torch.func.jvp's within {jac_rel:.3g} of a column's largest entry (<= "
+          f"{JAC_REL}), K1 launches == one render's; torch.func.vmap over "
+          f"{len(JAC_CAMERAS)} cameras == the renders bitwise; " + ", ".join(
+              f"{k} {sec:.3f}s ({k1} search_brute launches)"
+              for k, (sec, k1) in jac.items()))
 
     t = time.time()
     print(f"[dispatch] {smi}", flush=True)

@@ -16,11 +16,12 @@ and one process per rank in place of ``shard_map``:
   ``render(spp=spp_per, sample_offset=k * spp_per)`` over ``k`` divided by
   the size, not to one render of every sample.
 * A replicated-scene render differentiates in forward mode
-  (``torch.func.jvp``, ``forward_ad``): the spp mean's tangent is the mean
-  of the ranks' tangents and the px gather gathers them, as JAX's ``pmean``
-  and ``all_gather`` differentiate, so every rank holds the tangent of the
-  whole image. Reverse mode through it raises; :func:`make_train_step`
-  trains.
+  (``torch.func.jvp``, ``forward_ad``, ``torch.func.jacfwd``): the spp
+  mean's tangent is the mean of the ranks' tangents and the px gather
+  gathers them, as JAX's ``pmean`` and ``all_gather`` differentiate, so
+  every rank holds the tangent of the whole image (under ``jacfwd``, one
+  collective per tangent direction, in the same order on every rank).
+  Reverse mode through it raises; :func:`make_train_step` trains.
 * The traced-ray count is summed over both dimensions (exact integers; a
   padding ray is never counted).
 * **Blocks** (``scene_sharding="blocks"``): each ``px`` rank holds a
@@ -46,7 +47,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from raytracingc_tpu_torch.camera import Camera, primary_rays
 from raytracingc_tpu_torch.ops.accel import BLOCK, TriangleAccel, refresh_accel
-from raytracingc_tpu_torch.ops.no_tangent import no_tangent
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent, vmap_by_element
 from raytracingc_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_coords,
@@ -332,6 +333,10 @@ class _SppMean(torch.autograd.Function):
     def backward(ctx, grad):
         return grad, None
 
+    @staticmethod
+    def vmap(info, in_dims, radiance, mesh):
+        return vmap_by_element(_SppMean.apply, info, in_dims, radiance, mesh)
+
 
 class _PxGather(torch.autograd.Function):
     """The ``px`` ranks' radiance blocks gathered in rank order,
@@ -358,7 +363,12 @@ class _PxGather(torch.autograd.Function):
     def backward(ctx, grad):
         raise RuntimeError("render_sharded has no reverse mode: train through "
                            "make_train_step (or fit_scene(mesh=)); forward mode "
-                           "(torch.func.jvp, forward_ad) works")
+                           "(torch.func.jvp, forward_ad, torch.func.jacfwd) "
+                           "works")
+
+    @staticmethod
+    def vmap(info, in_dims, radiance, mesh):
+        return vmap_by_element(_PxGather.apply, info, in_dims, radiance, mesh)
 
 
 def make_train_step(mesh: DeviceMesh | None, optimizer: torch.optim.Optimizer,

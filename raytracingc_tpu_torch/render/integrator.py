@@ -19,9 +19,12 @@ and scatter on that path is out of place (``index_copy`` into a fresh
 tensor), so the same code is reverse-differentiable under autograd: the
 search runs under ``torch.no_grad`` and the resolve, shading, environment
 light and camera carry the gradients (the visibility-frozen subgradient).
-Forward mode (``torch.func.jvp``, ``torch.autograd.forward_ad``) runs
-through every mode, production included, on the card's kernels too: the
-search wrappers carry no tangent (``ops/no_tangent.py``).
+Forward mode (``torch.func.jvp``, ``torch.autograd.forward_ad``,
+``torch.func.jacfwd``) runs through every mode, production included, on the
+card's kernels too: the search wrappers carry no tangent
+(``ops/no_tangent.py``). Under ``torch.func.vmap`` (over cameras, say) the
+live lanes are those live in any element, masked per element, so each
+element's values are its own call's bit for bit.
 
 Traced rays are counted as Python integers (exact at any size; the JAX
 package sums them in float32).
@@ -31,6 +34,8 @@ without Russian roulette, shading each pixel by its bounce count.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -43,6 +48,7 @@ from raytracingc_tpu_torch.ops.intersect import (
     resolve_hit,
     with_perm_resolve,
 )
+from raytracingc_tpu_torch.ops.no_tangent import lane_count, live_lanes
 from raytracingc_tpu_torch.scene.types import Scene, scene_leaves
 
 
@@ -58,73 +64,93 @@ def _reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return d - 2.0 * dn[:, None] * n
 
 
-def _live(mask: torch.Tensor) -> torch.Tensor:
-    """Indices of the True lanes, in order (a host sync)."""
-    return torch.nonzero(mask).squeeze(1)
+def _step(pos, d, thr, light, state, hit: Hit, alive, scene: Scene):
+    """One bounce on the given hit: scatter, emission, roulette and miss.
+    ``alive`` is a bool ``[R]`` mask, or None when every lane is alive.
+    Returns the next ``(pos, d, thr, light, state, alive)``."""
+    state, unit = rng.next_unit_vector(state)
+    diffuse = _normalize(hit.normal + unit)
+    specular = _reflect(d, hit.normal)
+    smooth = hit.smoothness[:, None]
+    new_dir = (1.0 - smooth) * diffuse + smooth * specular
+
+    # Emission weighted by the PRE-update throughput, then albedo.
+    live_hit = hit.hit if alive is None else alive & hit.hit
+    live_miss = ~live_hit if alive is None else alive & ~hit.hit
+    hm = live_hit[:, None]
+    emitted = hit.albedo * hit.emission[:, None]
+    light = light + torch.where(hm, emitted * thr, 0.0)
+    new_thr = thr * hit.albedo
+
+    # Russian roulette: survive iff p >= u. amax shares its gradient evenly
+    # between tied channels, as jnp.max does.
+    state, u_rr = rng.next_uniform(state)
+    p = new_thr.amax(dim=-1)
+    survive = p >= u_rr
+    new_thr = new_thr / torch.where(p > 0.0, p, 1.0)[:, None]
+
+    # Miss: add the environment light and end the path.
+    env = environment_light(d, scene.env)
+    light = light + torch.where(live_miss[:, None], env * thr, 0.0)
+
+    thr = torch.where(hm, new_thr, thr)
+    pos = torch.where(hm, hit.point, pos)
+    d = torch.where(hm, new_dir, d)
+    return pos, d, thr, light, state, live_hit & survive
 
 
 def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
-                backend: str = "auto", active=None, throughput0=None):
+                backend: str = "auto", active=None, throughput0=None,
+                first_hit: Hit | None = None):
     """Trace one sample per ray. Returns ``(radiance [R, 3], rays_traced)``.
 
-    Lanes with ``active=False`` are dead from the start. Each bounce runs on
+    Lanes with ``active=False`` are dead from the start. ``first_hit``, the
+    precomputed hit of (origins, dirs), serves bounce 0 at full width with no
+    search (the JAX package's primary-hit cache). Every other bounce runs on
     the live lanes only and stops once none is left (the early-exit loop);
     ``rays_traced`` counts one ray per live lane per bounce. A lane's
     radiance is final once it dies, so it is written back when the live set
     shrinks and at the end.
+
+    Under ``torch.func.vmap`` with a batched live mask, the lanes kept are
+    those live in any element (``ops/no_tangent.live_lanes``) and each
+    bounce masks the others, so every element gets its own values; the
+    count is then an int64 tensor per element.
     """
     r = origins.shape[0]
     dev = origins.device
     light_full = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-    lanes = (torch.arange(r, device=dev) if active is None else _live(active))
     thr = (torch.ones((r, 3), dtype=torch.float32, device=dev)
            if throughput0 is None else throughput0)
-    pos, d, thr, state = origins[lanes], dirs[lanes], thr[lanes], rng_state[lanes]
-    light = torch.zeros((lanes.numel(), 3), dtype=torch.float32, device=dev)
-    count = 0
+    pos, d, state, count = origins, dirs, rng_state, 0
+    if first_hit is not None and max_bounce >= 1:
+        alive = (torch.ones((r,), dtype=torch.bool, device=dev)
+                 if active is None else active)
+        count = lane_count(alive)
+        pos, d, thr, light_full, state, active = _step(
+            pos, d, thr, light_full, state, first_hit, alive, scene)
+        max_bounce -= 1
 
+    lanes, union = ((torch.arange(r, device=dev), False) if active is None
+                    else live_lanes(active))
+    alive = active[lanes] if union else None
+    pos, d, thr, state, light = (x[lanes] for x in (pos, d, thr, state, light_full))
     for _ in range(max_bounce):
         n = lanes.numel()
         if n == 0:
             break
-        count += n
+        count += n if alive is None else alive.sum()
         hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend), scene)
-
-        # Scatter (every lane here is alive).
-        state, unit = rng.next_unit_vector(state)
-        diffuse = _normalize(hit.normal + unit)
-        specular = _reflect(d, hit.normal)
-        smooth = hit.smoothness[:, None]
-        new_dir = (1.0 - smooth) * diffuse + smooth * specular
-
-        # Emission weighted by the PRE-update throughput, then albedo.
-        hm = hit.hit[:, None]
-        emitted = hit.albedo * hit.emission[:, None]
-        light = light + torch.where(hm, emitted * thr, 0.0)
-        new_thr = thr * hit.albedo
-
-        # Russian roulette: survive iff p >= u. amax shares its gradient
-        # evenly between tied channels, as jnp.max does.
-        state, u_rr = rng.next_uniform(state)
-        p = new_thr.amax(dim=-1)
-        survive = p >= u_rr
-        new_thr = new_thr / torch.where(p > 0.0, p, 1.0)[:, None]
-
-        # Miss: add the environment light and end the path.
-        env = environment_light(d, scene.env)
-        light = light + torch.where(~hm, env * thr, 0.0)
-
-        thr = torch.where(hm, new_thr, thr)
-        pos = torch.where(hm, hit.point, pos)
-        d = torch.where(hm, new_dir, d)
-        alive = hit.hit & survive
-
-        keep = _live(alive)
+        pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
+                                                 alive, scene)
+        keep, union = live_lanes(alive)
         if keep.numel() < n:
             light_full = light_full.index_copy(0, lanes, light)
-            lanes, pos, d, thr, state, light = (
-                x[keep] for x in (lanes, pos, d, thr, state, light)
+            lanes, pos, d, thr, state, light, alive = (
+                x[keep] for x in (lanes, pos, d, thr, state, light, alive)
             )
+        if not union:
+            alive = None
     return light_full.index_copy(0, lanes, light), count
 
 
@@ -141,33 +167,11 @@ def _trace_masked(origins, dirs, rng_state, scene: Scene, max_bounce: int,
     light = torch.zeros_like(thr)
     alive, state, count = active, rng_state, 0
     for bounce in range(max_bounce):
-        count += int(alive.sum())
+        count += lane_count(alive)
         hit = first_hit if bounce == 0 else resolve_hit(
             pos, d, nearest_hit(pos, d, scene, backend=backend, alive=alive), scene)
-        state, unit = rng.next_unit_vector(state)
-        diffuse = _normalize(hit.normal + unit)
-        specular = _reflect(d, hit.normal)
-        smooth = hit.smoothness[:, None]
-        new_dir = (1.0 - smooth) * diffuse + smooth * specular
-
-        live_hit = (alive & hit.hit)[:, None]
-        emitted = hit.albedo * hit.emission[:, None]
-        light = light + torch.where(live_hit, emitted * thr, 0.0)
-        new_thr = thr * hit.albedo
-
-        state, u_rr = rng.next_uniform(state)
-        p = new_thr.amax(dim=-1)
-        survive = p >= u_rr
-        new_thr = new_thr / torch.where(p > 0.0, p, 1.0)[:, None]
-
-        live_miss = (alive & ~hit.hit)[:, None]
-        env = environment_light(d, scene.env)
-        light = light + torch.where(live_miss, env * thr, 0.0)
-
-        thr = torch.where(live_hit, new_thr, thr)
-        pos = torch.where(live_hit, hit.point, pos)
-        d = torch.where(live_hit, new_dir, d)
-        alive = alive & hit.hit & survive
+        pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
+                                                 alive, scene)
     return light, count
 
 
@@ -185,7 +189,8 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
     * ``(True, *)``: the production forward. No reverse mode: with grad
       enabled and any input requiring grad it raises ``ValueError`` naming
       the differentiable mode (JAX's ``while_loop`` refuses it too);
-      forward mode works (``torch.func.jvp``, ``forward_ad``).
+      forward mode works (``torch.func.jvp``, ``forward_ad``,
+      ``torch.func.jacfwd``).
     * ``(False, True)``, the default: the differentiable fast forward, the
       same hit-front accumulation as production (values and counts equal
       bit for bit) under autograd.
@@ -196,10 +201,15 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
     ``sample_group`` (an int dividing ``spp``, or ``"auto"``: the JAX rule,
     the largest divisor of ``spp`` up to ``65536 // (R // 8)``) traces that
     many samples of the hit-front continuation as one widened batch; per-lane
-    values do not change. ``sample_batch != 1`` raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 11 leaves it out). The
-    Morton-permuted resolve table is attached once here
-    (``with_perm_resolve``).
+    values do not change. ``sample_batch`` (an int dividing ``spp``, or
+    ``"auto"``: the largest of 8, 4, 2, 1 that divides it) widens the whole
+    path instead: see :func:`_batch_accumulate`. The Morton-permuted resolve
+    table is attached once here (``with_perm_resolve``).
+
+    ``torch.func.vmap`` over any input (cameras' rays, scene leaves) gives
+    each element the values of its own call bit for bit; ``rays_traced`` is
+    then an int64 tensor per element wherever the live lanes differ between
+    elements.
     """
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
@@ -220,11 +230,10 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
                 "(the widened sample_batch path bypasses the hit-front "
                 "accumulator)"
             )
-    if sample_batch != 1:
-        raise NotImplementedError(
-            f"sample_batch={sample_batch}: not ported (ROADMAP Queue 1 item 11: "
-            f"measured slower than sample_batch=1 in the JAX package)"
-        )
+    if sample_batch == "auto":
+        sample_batch = next(k for k in (8, 4, 2, 1) if spp % k == 0)
+    if spp % sample_batch != 0:  # the JAX package's assert
+        raise AssertionError((spp, sample_batch))
     if early_exit and torch.is_grad_enabled() and any(
             t.requires_grad for t in (origins, dirs, *scene_leaves(scene).values())):
         raise ValueError(
@@ -243,6 +252,10 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
         origins, dirs, nearest_hit(origins, dirs, scene, backend=backend, alive=act),
         scene,
     )
+    if sample_batch > 1:
+        return _batch_accumulate(origins, dirs, scene, ray_ids, seed,
+                                 sample_offset, spp, max_bounce, backend, act,
+                                 hit0, sample_batch, early_exit)
     if early_exit or compact:
         if sample_group == "auto":
             cap = max(65536 // max(r // 8, 1), 1)
@@ -259,6 +272,36 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
         rad, cnt = _trace_masked(origins, dirs, state, scene, max_bounce, backend,
                                  act, hit0)
         acc = acc + rad
+        count += cnt
+    return acc / float(spp), count
+
+
+def _batch_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
+                      max_bounce, backend, act, hit0: Hit, batch: int,
+                      early_exit: bool):
+    """The JAX package's widened ``sample_batch`` path: ``batch`` samples of
+    every ray traced as one ray batch of ``batch * R`` lanes (lane
+    ``k * R + i`` is sample ``b * batch + k`` of ray ``i`` in batch ``b``),
+    the primary hit tiled to that width. ``early_exit`` runs the early-exit
+    loop (:func:`trace_paths` with ``first_hit``), else the masked full-width
+    oracle (:func:`_trace_masked`), whatever ``compact`` says, as in the JAX
+    package. Each batch's samples are summed, the batches added in order and
+    the sum divided by ``spp``: ``sum_s(light0 + rest_s)``, the oracle's
+    association."""
+    r = origins.shape[0]
+    widen = lambda x: x.repeat((batch,) + (1,) * (x.dim() - 1))
+    o_w, d_w, ids_w, act_w = (widen(x) for x in (origins, dirs, ray_ids, act))
+    hit_w = Hit(**{f.name: widen(getattr(hit0, f.name))
+                   for f in dataclasses.fields(hit0)})
+    lane_sample = torch.arange(batch, device=origins.device).repeat_interleave(r)
+    trace = trace_paths if early_exit else _trace_masked
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=origins.device)
+    count = 0
+    for s in range(0, spp, batch):
+        state = rng.stream_init(seed, ids_w, lane_sample + (offset + s))
+        rad, cnt = trace(o_w, d_w, state, scene, max_bounce, backend,
+                         act_w, first_hit=hit_w)
+        acc = acc + rad.reshape(batch, r, 3).sum(0)
         count += cnt
     return acc / float(spp), count
 
@@ -281,22 +324,26 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
     env = environment_light(dirs, scene.env)
     light0 = (torch.where(hitm[:, None], emitted, 0.0)
               + torch.where((act & ~hit0.hit)[:, None], env, 0.0))
-    count = int(act.sum()) * spp
+    count = lane_count(act) * spp
 
-    sel = _live(hitm)
+    sel, union = live_lanes(hitm)
     width = sel.numel()
     point, normal, albedo = hit0.point[sel], hit0.normal[sel], hit0.albedo[sel]
     smooth = hit0.smoothness[sel][:, None]
     ids = ray_ids[sel]
+    # Under vmap, the primary-hit lanes of any element: a slot that missed
+    # in this element stays dead.
+    hit_sel = hitm[sel] if union else None
     # Post-bounce-0 throughput is deterministic: albedo / p with
     # p = max(albedo) (the roulette renorm); only survival is random.
     p = albedo.amax(dim=-1)
     thr = albedo / torch.where(p > 0.0, p, 1.0)[:, None]
     spec = _reflect(dirs[sel], normal)
     if group > 1:
-        widen = lambda x: x.repeat((group,) + (1,) * (x.dim() - 1))
-        point, normal, smooth, thr, p, spec, ids = (
-            widen(x) for x in (point, normal, smooth, thr, p, spec, ids))
+        widen = lambda x: None if x is None else x.repeat(
+            (group,) + (1,) * (x.dim() - 1))
+        point, normal, smooth, thr, p, spec, ids, hit_sel = (
+            widen(x) for x in (point, normal, smooth, thr, p, spec, ids, hit_sel))
 
     acc = torch.zeros((width, 3), dtype=torch.float32, device=origins.device)
     if width and max_bounce > 1:  # else the continuation traces nothing
@@ -311,9 +358,11 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
             diffuse = _normalize(normal + unit)
             new_dir = (1.0 - smooth) * diffuse + smooth * spec
             state, u_rr = rng.next_uniform(state)
+            survive = p >= u_rr
             light_s, cnt = trace_paths(
                 point, new_dir, state, scene, max_bounce - 1, backend=backend,
-                active=p >= u_rr, throughput0=thr,
+                active=survive if hit_sel is None else survive & hit_sel,
+                throughput0=thr,
             )
             for k in range(group):  # in sample order: the association of group 1
                 acc = acc + light_s[k * width:(k + 1) * width]
@@ -342,7 +391,7 @@ def trace_debug_bounces(origins, dirs, rng_state, scene: Scene, max_bounce: int,
     n_bounce = torch.zeros((r,), dtype=torch.float32, device=origins.device)
     alive = torch.ones((r,), dtype=torch.bool, device=origins.device)
     for _ in range(max_bounce):
-        if not bool(alive.any()):
+        if live_lanes(alive)[0].numel() == 0:  # dead in every vmap element
             break
         hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend,
                                               alive=alive), scene)

@@ -89,8 +89,9 @@ def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
     """Render linear radiance: ``(image [H, W, 3] float32, rays_traced)``.
 
     ``device`` defaults to the scene's; the scene and camera are moved there.
-    ``rays_traced`` is an exact Python integer. A lane's radiance does not
-    depend on ``pixel_chunk``. ``early_exit``, ``compact``, ``sample_batch``
+    ``rays_traced`` is an exact Python integer (under ``torch.func.vmap``,
+    an int64 tensor per element where the elements' paths differ). A lane's
+    radiance does not depend on ``pixel_chunk``. ``early_exit``, ``compact``, ``sample_batch``
     and ``sample_group`` select the integrator's mode
     (:func:`~raytracingc_tpu_torch.render.integrator.trace_accumulate`):
     the default is the forward-only production mode; pass

@@ -15,9 +15,10 @@ tells where and why their loss sequences part:
   radiance differs most between the packages, its value in each, the port's
   value at JAX's camera, and each package's primary hit there.
 * :func:`jacobians`: at one camera, both packages' per-pixel derivatives of
-  the image by the six pose parameters (one jvp a parameter), the pixel
-  where they differ most, and how much JAX's own derivative there moves
-  when one parameter moves by one float32 ulp.
+  the image by the six pose parameters (``jax.jacfwd`` and
+  ``torch.func.jacfwd``), the pixel where they differ most, and how much
+  JAX's own derivative there moves when one parameter moves by one float32
+  ulp.
 
     python tests/camera_fit_witness.py [--steps 40]
 
@@ -232,11 +233,7 @@ def jacobians(pose, ins=None) -> dict:
     jac = jax.jit(jax.jacfwd(_jax_pose_image(js, jc0)))
     jj = np.asarray(jac(jnp.asarray(pose)))
     image = _port_pose_image(ts, jc0.fov)
-    v = torch.from_numpy(np.array(pose))
-    # One jvp a parameter: torch.func.jacfwd would vmap the search wrappers,
-    # which have no vmap rule.
-    jt = np.stack([torch.func.jvp(image, (v,), (torch.eye(6)[e],))[1].numpy()
-                   for e in range(6)], axis=-1)
+    jt = torch.func.jacfwd(image)(torch.from_numpy(np.array(pose))).numpy()
     diff = np.abs(jt - jj).max(axis=(1, 2))
     i = int(diff.argmax())
     own = float(np.abs(jj[i]).max())

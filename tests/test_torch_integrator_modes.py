@@ -111,7 +111,8 @@ def test_differentiable_forward_under_grad_is_production(scenes):
 
 def test_validation_errors_match_jax(scenes):
     """The JAX package's sample_group errors (render/integrator.py:291-311),
-    with its messages; sample_batch stays out of the port."""
+    with its messages; sample_batch=2 runs, and a sample_batch that does
+    not divide spp is refused as JAX refuses it (an AssertionError)."""
     from raytracingc_tpu.render.integrator import trace_accumulate as j_trace
 
     js, ts, _, _ = scenes
@@ -133,8 +134,12 @@ def test_validation_errors_match_jax(scenes):
                              torch.from_numpy(ids.astype(np.int64)), seed=0,
                              spp=4, max_bounce=2, **kw)
     t = (torch.from_numpy(o), torch.from_numpy(d), ts, torch.arange(8))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trace_accumulate(*t, seed=0, spp=4, max_bounce=2, sample_batch=2)
+    img, n = trace_accumulate(*t, seed=0, spp=4, max_bounce=2, sample_batch=2)
+    assert img.shape == (8, 3) and n >= 32
+    with pytest.raises(AssertionError):
+        j_trace(o, d, js, ids, seed=0, spp=4, max_bounce=2, sample_batch=3)
+    with pytest.raises(AssertionError):
+        trace_accumulate(*t, seed=0, spp=4, max_bounce=2, sample_batch=3)
     with pytest.raises(ValueError, match="spp"):
         trace_accumulate(*t, seed=0, spp=0, max_bounce=2)
 

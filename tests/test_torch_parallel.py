@@ -315,6 +315,28 @@ def test_spp_sharded_jvp_equals_mean_of_offset_jvps(worlds, port, size, case):
     assert float(np.abs(got[f"{case}/tangent"]).max()) > 0
 
 
+@pytest.mark.parametrize("size,case", [(2, "jacfwd_samples"), (4, "jacfwd_both")],
+                         ids=["samples-1x2", "both-2x2"])
+def test_spp_sharded_jacfwd_equals_mean_of_offset_jacfwds(worlds, port, size, case):
+    """torch.func.jacfwd of a sample-sharded render (production mode): the
+    Jacobian on every rank is the mean of the one-device Jacobians of the
+    offset renders, bit for bit (the collectives' vmap rule runs them once
+    per tangent direction, in the same order on every rank)."""
+    load, cam = port
+    scene = load("demo")
+    w, h, spp, b, seed = worker.JVP
+    p = worker.jacfwd_params(scene)
+    parts = [torch.func.jacfwd(
+        lambda q: render(worker.jacfwd_scene(scene, q), cam, w, h, spp // 2, b,
+                         seed=seed, sample_offset=k * (spp // 2))[0])(p)
+        for k in range(2)]
+    want = (parts[0] + parts[1]) / 2.0
+    for rank in worlds[size]:
+        np.testing.assert_array_equal(_bits(rank[f"{case}/jacobian"]),
+                                      _bits(want.numpy()))
+    assert float(want.abs().max()) > 0
+
+
 @pytest.mark.parametrize("size,case,n_spp", SPP_CASES, ids=["samples-1x2", "both-2x2"])
 def test_spp_sharded_matches_jax_distribution(worlds, jax_inputs, size, case, n_spp):
     """tests/test_parallel.py's rule: image means agree to Monte-Carlo
@@ -524,6 +546,25 @@ def test_render_sharded_reverse_mode_raises(port):
     want = torch.func.jvp(fn(False), (leaves,), (tangents,))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_bits(g.numpy()), _bits(w.numpy()))
+
+
+@pytest.mark.parametrize("strategy", ["pixels", "samples"])
+def test_one_rank_render_sharded_jacfwd_is_render(port, strategy):
+    """torch.func.jacfwd through render_sharded on a one-rank mesh: the
+    one-device Jacobian bit for bit, in production mode and in the
+    differentiable fast forward."""
+    load, cam = port
+    scene = load("demo")
+    mesh = make_mesh(1, 1, device_type="cpu")
+    p = worker.jacfwd_params(scene)
+    for early_exit in (True, False):
+        fn = lambda sharded: lambda q: (render_sharded if sharded else render)(
+            worker.jacfwd_scene(scene, q), cam, 6, 5, 2, 3, early_exit=early_exit,
+            **({"mesh": mesh, "strategy": strategy} if sharded else {}))[0]
+        got = torch.func.jacfwd(fn(True))(p)
+        want = torch.func.jacfwd(fn(False))(p)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+        assert float(want.abs().max()) > 0
 
 
 def test_dryrun_multichip_four_ranks(worlds):

@@ -142,13 +142,15 @@ def test_render_modes_and_arguments(scenes):
     d[:, 2] = 1.0
     ids = torch.arange(8)
     # The other modes run (tests/test_torch_integrator_modes.py holds their
-    # values); sample_batch stays out of the port (ROADMAP item 11).
+    # values, tests/test_torch_sample_batch.py sample_batch's); a
+    # sample_batch that does not divide spp is refused, as JAX's assert does.
     for kw in (dict(early_exit=False), dict(compact=False),
-               dict(early_exit=False, compact=False), dict(sample_group=2)):
+               dict(early_exit=False, compact=False), dict(sample_group=2),
+               dict(sample_batch=2)):
         img, n = trace_accumulate(o, d, ts, ids, seed=0, spp=2, max_bounce=2, **kw)
         assert img.shape == (8, 3) and n >= 16, kw
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        trace_accumulate(o, d, ts, ids, seed=0, spp=2, max_bounce=2, sample_batch=2)
+    with pytest.raises(AssertionError):
+        trace_accumulate(o, d, ts, ids, seed=0, spp=2, max_bounce=2, sample_batch=4)
     with pytest.raises(ValueError):
         trace_accumulate(o, d, ts, ids, seed=0, spp=0, max_bounce=2)
     img, n = render(ts, tc, 8, 8, 2, 0)

@@ -145,6 +145,36 @@ def case_jvp(data, size, strategy):
     return {"image": img.numpy(), "tangent": dot.numpy(), "count": n.numpy()}
 
 
+def jacfwd_params(scene) -> torch.Tensor:
+    """The Jacobian cases' parameters [4]: the environment's ground colour
+    and a scale on the triangles' emission (1: the scene as it is)."""
+    from raytracingc_tpu_torch.scene.types import scene_leaves
+
+    return torch.cat([scene_leaves(scene)[".env.ground"], torch.ones(1)])
+
+
+def jacfwd_scene(scene, p):
+    """``scene`` with the parameters ``p`` of :func:`jacfwd_params`."""
+    from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
+
+    emission = scene_leaves(scene)[".triangles.emission"]
+    return with_leaves(scene, {".env.ground": p[:3],
+                               ".triangles.emission": emission * p[3]})
+
+
+def case_jacfwd(data, size, strategy):
+    """torch.func.jacfwd of a sharded render (production mode) by
+    :func:`jacfwd_params`: the image's Jacobian [H, W, 3, 4]."""
+    from raytracingc_tpu_torch.parallel import render_sharded
+
+    w, h, spp, b, seed = JVP
+    scene = load_scene(data, "demo")
+    jac = torch.func.jacfwd(lambda p: render_sharded(
+        jacfwd_scene(scene, p), _camera(data), w, h, spp=spp, max_bounce=b,
+        seed=seed, strategy=strategy, mesh=_mesh(size // 2, 2))[0])
+    return {"jacobian": jac(jacfwd_params(scene)).numpy()}
+
+
 def case_merge(data, size, scene, knobs=None):
     """The merged winners of a block-sharded search of ``scene`` for the
     rays ``soup_rays/o``, ``soup_rays/d``."""
@@ -254,6 +284,7 @@ CASES = {
                                                strategy="samples"),
         "train_1x2": lambda data, n: case_train(data, n, (1, 2)),
         "jvp_samples": lambda data, n: case_jvp(data, n, "samples"),
+        "jacfwd_samples": lambda data, n: case_jacfwd(data, n, "samples"),
         "progressive": case_progressive,
         "progressive_bad_batch": case_progressive_bad_batch,
         "fit": case_fit,
@@ -266,6 +297,7 @@ CASES = {
                                             strategy="both"),
         "train_2x2": lambda data, n: case_train(data, n, (2, 2)),
         "jvp_both": lambda data, n: case_jvp(data, n, "both"),
+        "jacfwd_both": lambda data, n: case_jacfwd(data, n, "both"),
         "blocks_both": lambda data, n: case_render(
             data, n, "box_blocks", BLOCKS, mesh_shape=(2, 2),
             scene_sharding="blocks"),
