@@ -55,9 +55,13 @@ TIMED_N_LIVE = (10, 640)  # box_scene, and box_scene tessellated 64-fold
 TIMED_RAYS = 65536
 
 # Phase 3b: the packet kernels against their plain versions, bit for bit,
-# and at TIMED_RAYS their live-lane winners against the brute scan over all
-# live triangles (the ragged ray count is held to the plain version only:
-# the torch brute scan of 163,840 triangles takes seconds a call). (label,
+# and their live-lane winners against a brute scan over all live triangles,
+# which reads no culling word: at TIMED_RAYS the torch scan
+# (search_brute_reference); at the ragged count, whose last packet is part
+# filled, K1 (search_brute, held bit for bit to the torch scan in phase 3),
+# itself held bit for bit to the torch scan on the last BRUTE_TAIL rays and
+# BRUTE_SAMPLE more drawn from their own seeded generator (the torch scan of
+# all 100,003 rays by 163,840 triangles takes seconds a call). (label,
 # scene, live triangles, knobs, expected kernel); the
 # scene is a seeded soup or box_scene tessellated to that count, and the
 # label starts with the TPU kernel that the route stands for (checked).
@@ -128,6 +132,8 @@ TIMED_PACKET = {
     "K7 box 163,840 streamed, whole-plane rays (RTC_STREAM_CULL=words)": 1,
 }
 SECONDARY_KERNELS = ("bitmask", "packed", "range", "words")
+BRUTE_TAIL = 64
+BRUTE_SAMPLE = 4096
 WHOLE_PLANE = ("K5 box 163,840 streamed, whole-plane spans (RTC_CULL=range)",
                "K6 box 40,960 resident, whole-plane rays (RTC_STREAM_CULL=words)",
                "K7 box 163,840 streamed, whole-plane rays (RTC_STREAM_CULL=words)")
@@ -813,6 +819,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
     )
     from raytracingc_tpu_torch.ops.search_brute import (
         pack_triangles,
+        search_brute,
         search_brute_reference,
     )
     from raytracingc_tpu_torch.ops.search_packed import (
@@ -906,10 +913,22 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                 raise AssertionError(f"{where}: dst bits differ from the plain version")
             if n_rays == TIMED_RAYS:
                 db, ib = search_brute_reference(o, d, brute_tri, n, alive)
-                if not (torch.equal(ik[alive], ib[alive]) and torch.equal(
-                        dk[alive].view(torch.int32), db[alive].view(torch.int32))):
-                    raise AssertionError(f"{where}: live lanes differ from the brute "
-                                         f"scan on {int((ik != ib)[alive].sum())} rays")
+            else:
+                db, ib = search_brute(o, d, brute_tri, n, alive)
+                pick = np.random.default_rng([SECONDARY_SEED, case, n_rays]).choice(
+                    n_rays - BRUTE_TAIL, BRUTE_SAMPLE, replace=False)
+                sel = torch.from_numpy(np.concatenate([
+                    pick, np.arange(n_rays - BRUTE_TAIL, n_rays)])).to(dev)
+                ds, is_ = search_brute_reference(o[sel], d[sel], brute_tri, n,
+                                                 alive[sel])
+                if not (torch.equal(ib[sel], is_) and torch.equal(
+                        db[sel].view(torch.int32), ds.view(torch.int32))):
+                    raise AssertionError(f"{where}: K1 differs from the torch scan "
+                                         f"on {int((ib[sel] != is_).sum())} rays")
+            if not (torch.equal(ik[alive], ib[alive]) and torch.equal(
+                    dk[alive].view(torch.int32), db[alive].view(torch.int32))):
+                raise AssertionError(f"{where}: live lanes differ from the brute "
+                                     f"scan on {int((ik != ib)[alive].sum())} rays")
             hits = int((ik[alive] >= 0).sum())
             if hits < n_rays // 100:
                 raise AssertionError(f"{where}: only {hits} live rays hit")
@@ -938,7 +957,8 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                     n_bytes(*args[:-2 if way.kernel in ("packed", "words")
                                   else None], dk, ik))
         phase("kernel", t, f"{label}: {name} == plain bitwise, live lanes == "
-              f"brute scan at R={TIMED_RAYS}; {way.kernel} ({way.tpu}) tile={way.tile} "
+              f"brute scan (K1 at the ragged R, itself == the torch scan on "
+              f"{BRUTE_TAIL + BRUTE_SAMPLE} of its rays); {way.kernel} ({way.tpu}) tile={way.tile} "
               f"n_tiles={way.n_tiles} granule={way.granule}; " + "; ".join(notes))
     return timings, max_err, work
 

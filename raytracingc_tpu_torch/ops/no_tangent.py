@@ -121,7 +121,10 @@ def live_lanes(mask: torch.Tensor) -> tuple[torch.Tensor, bool]:
     """``(indices, union)``: the True lanes of a bool ``[R]`` mask, in order
     (a host sync). ``union`` is True iff the mask carries a ``vmap`` batch:
     the indices are then those of the lanes True in any element, and some
-    of them may be False in a given element."""
+    of them may be False in a given element. With no functorch transform
+    active (the production render) no ``autograd.Function`` is applied."""
+    if not torch._C._are_functorch_transforms_active():
+        return torch.nonzero(mask).squeeze(1), False
     return _AnyLanes.apply(mask), _batched(mask)
 
 
@@ -129,7 +132,9 @@ def lane_count(mask: torch.Tensor):
     """The number of True lanes of a bool mask: an exact Python int (a host
     sync), or under a ``vmap`` batch that the mask carries, an int64 tensor
     per element."""
-    return mask.sum() if _batched(mask) else int(mask.sum())
+    if torch._C._are_functorch_transforms_active() and _batched(mask):
+        return mask.sum()
+    return int(mask.sum())
 
 
 def no_tangent(fn):

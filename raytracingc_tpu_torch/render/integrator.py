@@ -209,7 +209,10 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
     ``torch.func.vmap`` over any input (cameras' rays, scene leaves) gives
     each element the values of its own call bit for bit; ``rays_traced`` is
     then an int64 tensor per element wherever the live lanes differ between
-    elements.
+    elements. tests/test_torch_jacfwd.py holds this for cameras on every
+    search route (brute, bitmask, packed, range, words, mxu: the culling
+    prelude runs on the batched rays) and for scene leaves on the brute
+    route.
     """
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")

@@ -14,8 +14,9 @@ inputs, at the forward-mode tolerance of tests/test_torch_forward_mode.py
 (``GRAD_RTOL[max_bounce]`` times the largest |entry|, here per parameter);
 ``jacfwd`` against the stack of one ``jvp`` per direction in every
 integrator mode (bit for bit); the search called as often under ``jacfwd``
-as in one render; ``vmap`` over cameras and over scene leaves equal to the
-separate renders bit for bit, counts per element; the ``vmap`` rule on a
+as in one render; ``vmap`` over cameras (on every search route, whose
+culling prelude runs on the batched rays) and over scene leaves equal to
+the separate renders bit for bit, counts per element; the ``vmap`` rule on a
 plain search in both its branches, and the lane helpers.
 """
 
@@ -30,11 +31,13 @@ import torch
 from raytracingc_tpu.camera import look_at_basis as j_look_at_basis
 from raytracingc_tpu.render.renderer import render as j_render
 from raytracingc_tpu_torch.camera import Camera, look_at_basis
+from raytracingc_tpu_torch.ops import search
 from raytracingc_tpu_torch.ops import search_brute as brute_mod
 from raytracingc_tpu_torch.ops.no_tangent import lane_count, live_lanes
 from raytracingc_tpu_torch.ops.search_brute import pack_triangles, search_brute
 from raytracingc_tpu_torch.render.integrator import render_debug
 from raytracingc_tpu_torch.render.renderer import render
+from raytracingc_tpu_torch.scene import builder as tb
 from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
 from test_torch_diff import GRAD_RTOL, demo  # noqa: F401  (fixture)
 from test_torch_integrator_modes import scenes  # noqa: F401  (fixture)
@@ -188,6 +191,58 @@ def test_vmap_over_cameras_equals_renders(scenes, mode):  # noqa: F811
         assert torch.equal(_bits(imgs[k]), _bits(img)), k
         assert int(counts[k]) == int(n), k
     assert len({int(c) for c in counts}) > 1  # the cameras' paths differ
+
+
+# The accel routes, whose culling prelude (culling.packets, the per-packet
+# words or spans, stream_tile_pad) runs on the batched rays outside
+# _NoTangent: box_scene tessellated, routed by the knobs as
+# tests/test_torch_render_accel.py routes it (the bitmask route at
+# --tessellate 5 with the default knobs, as chip_smoke.py's K2 case; the
+# mxu route, whose plain version is the slowest on the CPU, at
+# --tessellate 2; the others at --tessellate 4). (levels, knobs, the
+# route's wrapper)
+STREAMED = {"RTC_BRUTE_MAX": "0", "RTC_STREAM_MAX_T": "1024", "RTC_STREAM_TILE": "768"}
+PACKET_ROUTES = {
+    "bitmask": (5, {}, "search_bitmask"),
+    "packed": (4, STREAMED, "search_packed"),
+    "range": (4, {"RTC_BRUTE_MAX": "0", "RTC_CULL": "range"}, "search_range"),
+    "words": (4, {**STREAMED, "RTC_STREAM_CULL": "words"}, "search_words"),
+    "mxu": (2, {"RTC_KERNEL": "mxu"}, "search_mxu"),
+}
+
+
+@pytest.mark.parametrize("mode", ["production", "fast"])
+@pytest.mark.parametrize("route", list(PACKET_ROUTES))
+def test_vmap_over_cameras_on_packet_routes(scenes, monkeypatch, route, mode):  # noqa: F811
+    """As test_vmap_over_cameras_equals_renders, through every accel
+    route's plain version: each image the separate render's bits, each
+    count its int, the route's search called."""
+    _, ts, _, tc = scenes
+    levels, env, name = PACKET_ROUTES[route]
+    tt, n_tri = tb.tessellate(ts.triangles, ts.n_triangles, levels=levels)
+    big = dataclasses.replace(ts, triangles=tt, n_triangles=n_tri,
+                              accel=None).with_accel()
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    calls = []
+    real = getattr(search, name)
+    monkeypatch.setattr(search, name, lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+
+    def f(p):
+        x, y, z = p[3:].unbind(-1)
+        ex, ey, ez = look_at_basis(p[:3], p[:3] + p[3:] / torch.sqrt(x * x + y * y + z * z))
+        img, n = render(big, Camera(origin=p[:3], ex=ex, ey=ey, ez=ez, fov=tc.fov),
+                        12, 10, 2, 3, seed=5, pixel_chunk=64, **MODES[mode])
+        return img, torch.as_tensor(n)
+
+    poses = _poses(tc)
+    imgs, counts = torch.func.vmap(f)(poses)
+    assert calls
+    for k in range(3):
+        img, n = f(poses[k])
+        assert torch.equal(_bits(imgs[k]), _bits(img)), k
+        assert int(counts[k]) == int(n), k
+    assert len({int(c) for c in counts}) > 1
 
 
 def test_vmap_over_scene_leaves_and_debug(scenes):  # noqa: F811
