@@ -53,6 +53,31 @@ PHASE3_RAYS = (65536, 100003)  # one full pixel chunk, one ragged size
 # every phase.
 TIMED_N_LIVE = (10, 640)  # box_scene, and box_scene tessellated 64-fold
 TIMED_RAYS = 65536
+BRUTE_TIMED = "640"  # phase 3's case of the kernel line's K1 row
+# Each case runs K1's two entries, the packed rows and the pack-free one
+# (the scene's Triangles: a, b = a + AB, c = a + AC, the normals), each
+# held bit for bit to the torch scan of its own rows, and the kernel's lanes
+# per ray (rtc_search_brute_parts) to ops/search_brute.py::brute_parts.
+# Then the cases below, from their own seeded generator so that every later
+# phase's data stays that of the runs before: (live triangles, R, lanes):
+# "dead" (a share DEAD dead), "none" (alive=None) or "all dead". R = 1 and
+# 33 leave most of a CTA's lanes empty, R = 16,384 (a compacted bounce)
+# takes 16 lanes a ray; 1,537 and 10,240 triangles pass the staged table
+# (TILE_ROWS) and take the tiled walk.
+PHASE3_EXTRA = ((640, 65536, "none"), (640, 65536, "all dead"), (257, 1, "dead"),
+                (1, 1, "none"), (640, 33, "dead"), (255, 33, "none"),
+                (640, 16384, "dead"), (640, 16384, "none"), (1537, 65536, "dead"),
+                (10240, 65536, "dead"))
+PHASE3_EXTRA_SEED = 20261018
+# Timed at R = TIMED_RAYS (events with the host, the host per call, and
+# torch.profiler's device time): the packed entry at TIMED_N_LIVE with DEAD
+# dead lanes, at 640 triangles also with every lane live (alive=None) and
+# through the pack-free entry, and the brute leg of search_triangles on
+# box_scene (10 triangles, no accel used, an all-true alive and no grad:
+# the production render's primary search). Each bound counts the live
+# pairs (live rays x n_live), as the packet rows count the pairs their
+# tables make them test; the all-pairs bound (R x n_live) is printed beside
+# it.
 
 # Phase 3b: the packet kernels against their plain versions, bit for bit,
 # and their live-lane winners against a brute scan over all live triangles,
@@ -186,9 +211,13 @@ UNION_CASES = (
 UNION_TIMED = "box 10,240 (--tessellate 5)"  # the union tool's scene
 
 # The kernels whose ptxas report must show no spills (the build fails the
-# smoke otherwise): the item searches, K8's and the words kernel K9 runs.
-NO_SPILLS = ("search_range_kernel", "search_words_kernel", "search_mxu_kernel",
-             "mxu_pack_kernel", "mxu_items_kernel")
+# smoke otherwise): K1 (every instantiation), the item searches, K8's and
+# the words kernel K9 runs.
+NO_SPILLS = ("search_brute_kernel", "search_range_kernel", "search_words_kernel",
+             "search_mxu_kernel", "mxu_pack_kernel", "mxu_items_kernel")
+# The K1 instantiation whose MT loop tools/sass_loop.py counts: 8 lanes a
+# ray over a staged table (TIMED_RAYS rays at 640 triangles).
+SASS_KERNEL = "search_brute_kernelILi8ELb0E"
 
 # Bounds: the larger of the operations over the card's peak rate for their
 # type and the bytes over its memory rate (H100 SXM at 700 W). FP32
@@ -786,6 +815,122 @@ def random_soup(rng, n_live: int, n_rays: int):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     alive = rng.uniform(size=n_rays) >= DEAD
     return tri, o, d, alive
+
+
+def soup_triangles(tri):
+    """A random_soup's packed rows as the Triangles of K1's pack-free entry
+    (a, b = a + AB, c = a + AC, the normals; no materials read)."""
+    import torch
+
+    from raytracingc_tpu_torch.scene.types import Triangles
+
+    a = tri[:, 0:3].contiguous()
+    zeros = torch.zeros_like(a)
+    return Triangles(a=a, b=a + tri[:, 3:6], c=a + tri[:, 6:9],
+                     normal=tri[:, 9:12].contiguous(), albedo=zeros,
+                     emission=zeros[:, 0], smoothness=zeros[:, 0])
+
+
+def check_brute_kernel(dev, rng) -> dict:
+    """Phase 3: K1 against its plain version bit for bit, through both
+    entries, at PHASE3_N_LIVE x PHASE3_RAYS (soups from ``rng``) and at
+    PHASE3_EXTRA (from their own generator); timed at TIMED_RAYS. Returns
+    ``{"cases", "parts", "max_abs", "timed": {label: split_times + plain
+    ms, bounds}}``; raises on any disagreement."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.ops import _build, search
+    from raytracingc_tpu_torch.ops.search_brute import (
+        brute_parts,
+        pack_triangles,
+        search_brute,
+        search_brute_reference,
+    )
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+    from raytracingc_tpu_torch.tools import cuda_ms, split_times
+
+    lib = _build.load_library()
+    extra_rng = np.random.default_rng(PHASE3_EXTRA_SEED)
+    cases = [(n, r, "dead", rng) for n in PHASE3_N_LIVE for r in PHASE3_RAYS]
+    cases += [(n, r, lanes, extra_rng) for n, r, lanes in PHASE3_EXTRA]
+    out = {"cases": 0, "parts": {}, "max_abs": 0.0, "timed": {}}
+    timed = out["timed"]
+
+    def split(label, call, args, n_live, alive, result, plain=None):
+        v = split_times(call, "search_brute")
+        if plain is not None:
+            v["plain"] = cuda_ms(plain, 10)
+        r = args[0].shape[0]
+        live = r if alive is None else int(alive.sum())
+        nbytes = n_bytes(*args, *([] if alive is None else [alive]), *result)
+        v["pairs"] = live * n_live
+        v["bound"] = bound(live * n_live * MT_OPS, 0, nbytes)
+        v["all_bound"] = bound(r * n_live * MT_OPS, 0, nbytes)
+        timed[label] = v
+
+    for n_live, n_rays, lanes, gen in cases:
+        tri, o, d, alive = random_soup(gen, n_live, n_rays)
+        if lanes == "all dead":
+            alive[:] = False
+        o, d, tri = (torch.from_numpy(x).to(dev) for x in (o, d, tri))
+        alive_t = None if lanes == "none" else torch.from_numpy(alive).to(dev)
+        tris = soup_triangles(tri)
+        free_tri = pack_triangles(tris, n_live)
+        where = f"n_live={n_live} R={n_rays} ({lanes})"
+        parts = int(lib.rtc_search_brute_parts(n_rays, n_live))
+        if parts != brute_parts(n_rays, n_live):
+            raise AssertionError(f"{where}: the kernel takes {parts} lanes a ray, "
+                                 f"brute_parts {brute_parts(n_rays, n_live)}")
+        out["parts"][f"{n_live}x{n_rays}"] = parts
+        for entry, rows, arg in (("packed", tri, tri), ("pack-free", free_tri, tris)):
+            dk, ik = search_brute(o, d, arg, n_live, alive_t)
+            dr, ir = search_brute_reference(o, d, rows, n_live, alive_t)
+            torch.cuda.synchronize()
+            if not torch.equal(ik, ir):
+                raise AssertionError(f"{where} {entry}: idx differs on "
+                                     f"{int((ik != ir).sum())} rays")
+            if not torch.equal(dk.view(torch.int32), dr.view(torch.int32)):
+                raise AssertionError(f"{where} {entry}: dst bits differ")
+            hits = int((ik >= 0).sum())
+            if lanes == "all dead" and hits:
+                raise AssertionError(f"{where} {entry}: {hits} dead lanes hit")
+            if lanes != "all dead" and n_live > 1 and n_rays > 1 and hits == 0:
+                raise AssertionError(f"{where} {entry}: no ray hit")
+            out["max_abs"] = max(out["max_abs"], float((dk - dr).abs().max()))
+            out["cases"] += 1
+        if n_rays != TIMED_RAYS:
+            continue
+        if gen is rng and n_live in TIMED_N_LIVE:
+            args = (o, d, tri)
+            split(f"{n_live}", lambda: search_brute(*args, n_live, alive_t), args,
+                  n_live, alive_t, (dk, ik),
+                  lambda: search_brute_reference(*args, n_live, alive_t))
+            if n_live == max(TIMED_N_LIVE):
+                free = (o, d, tris.a, tris.b, tris.c, tris.normal)
+                split(f"{n_live} pack-free", lambda: search_brute(o, d, tris, n_live, alive_t),
+                      free, n_live, alive_t, (dk, ik))
+        if gen is extra_rng and lanes == "none" and n_live == max(TIMED_N_LIVE):
+            args = (o, d, tri)
+            split(f"{n_live} all live", lambda: search_brute(*args, n_live), args,
+                  n_live, None, (dk, ik))
+    box = scene_from_triangles_txt(BOX_SCENE).to(dev)
+    _, o, d, _ = random_soup(extra_rng, 1, TIMED_RAYS)
+    o, d = (torch.from_numpy(x).to(dev) for x in (o, d))
+    act = torch.ones(TIMED_RAYS, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        leg = lambda: search.search_triangles(o, d, box.triangles, box.n_triangles,
+                                              alive=act, accel=box.accel)
+        ld, li = leg()
+        want = search_brute_reference(o, d, pack_triangles(box.triangles, box.n_triangles),
+                                      box.n_triangles, act)
+        if not (torch.equal(li, want[1]) and torch.equal(ld.view(torch.int32),
+                                                         want[0].view(torch.int32))):
+            raise AssertionError("the brute leg on box_scene differs from the torch scan")
+        split("box_scene leg", leg, (o, d, box.triangles.a, box.triangles.b,
+                                     box.triangles.c, box.triangles.normal),
+              box.n_triangles, act, (ld, li))
+    return out
 
 
 def packet_scene(rng, kind: str, n_live: int):
@@ -1424,38 +1569,6 @@ def l2_read_rate(dev) -> float:
     return a.numel() * 4 / (cuda_ms(lambda: a.sum(), 50) * 1e-3)
 
 
-def split_times(call, kernel: str) -> dict:
-    """A kernel's times at one launch, ``call()`` calling its wrapper once:
-    ``ms`` the call by CUDA events over 50 calls (host included: the kernel
-    line's time), ``host`` the host's milliseconds per call (200 calls on a
-    clock with no sync between them: the launch queue holds them, so a
-    slower device does not stall the host), ``profiler`` the device duration
-    per launch of the CUDA kernels whose name holds ``kernel``, from
-    torch.profiler over 20 calls."""
-    import torch
-
-    from raytracingc_tpu_torch.tools import cuda_ms
-
-    out = {"ms": cuda_ms(call, 50)}
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(200):
-        call()
-    out["host"] = (time.perf_counter() - t) / 200 * 1e3
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(20):
-            call()
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "device_time_total", 0) or getattr(
-        e, "cuda_time_total", 0)
-    durs = [dev_us(e) / max(e.count, 1) for e in prof.key_averages()
-            if kernel in e.key and dev_us(e) > 0]
-    out["profiler"] = durs[0] / 1e3 if durs else float("nan")
-    return out
-
-
 def check_smem_probe(dev):
     """Phase 3e: every ladder size up to the device's opt-in limit runs and
     equals the plain version bit for bit; the first size past it is refused
@@ -1463,13 +1576,13 @@ def check_smem_probe(dev):
     split of the staging) equal the plain version. Returns ``(limit bytes,
     {timing: ms} at the limit, (operations, bytes) the function needs, the
     bytes the CTAs stage, the ladder's [(n, equal, refusal)])``. Timings:
-    :func:`split_times`; ``set every call`` the events' time with the limit
+    ``tools.split_times``; ``set every call`` the events' time with the limit
     raised again before each launch (the parent's host work); ``device``
     100 launches from one C call between two events, per launch; ``plain``
     the plain version."""
     import torch
 
-    from raytracingc_tpu_torch.tools import cuda_ms
+    from raytracingc_tpu_torch.tools import cuda_ms, split_times
     from raytracingc_tpu_torch.tools import smem_probe as sp
 
     limit = sp.optin_bytes(dev)
@@ -2434,21 +2547,17 @@ def main() -> int:
     from raytracingc_tpu_torch.camera import Camera
     from raytracingc_tpu_torch.cli import main as cli_main
     from raytracingc_tpu_torch import tools
-    from raytracingc_tpu_torch.tools import cuda_ms, knobs_set
+    from raytracingc_tpu_torch.tools import knobs_set
     from raytracingc_tpu_torch.ops import _build
     from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu, search_mxu_grid
     from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
-    from raytracingc_tpu_torch.ops.search_brute import (
-        search_brute,
-        search_brute_reference,
-    )
     from raytracingc_tpu_torch.ops.search_packed import search_packed
     from raytracingc_tpu_torch.ops.search_range import search_grid as item_grid
     from raytracingc_tpu_torch.ops.search_range import search_range
     from raytracingc_tpu_torch.ops.search_union import search_union
     from raytracingc_tpu_torch.ops.search_words import search_words
     from raytracingc_tpu_torch.render.image import read_bmp
-    from raytracingc_tpu_torch.tools import smem_probe, union_walk_ab
+    from raytracingc_tpu_torch.tools import sass_loop, smem_probe, union_walk_ab
     from raytracingc_tpu_torch.tools.packets import DEAD
     from raytracingc_tpu_torch.render.renderer import render
     from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
@@ -2478,7 +2587,8 @@ def main() -> int:
         if "Used" in ln
     )
     reports = {k: _build.ptxas_report(k) for k in (
-        "search_bitmask_kernel", "search_packed_kernel", "search_range_kernel",
+        "search_brute_kernel", "search_bitmask_kernel", "search_packed_kernel",
+        "search_range_kernel",
         "search_words_kernel", "range_items_kernel", "words_items_kernel",
         "unpack_keys_kernel", "search_mxu_kernel", "mxu_pack_kernel",
         "mxu_items_kernel")}
@@ -2489,55 +2599,37 @@ def main() -> int:
     grids = {f"search_{k}_kernel": item_grid(dev, k) for k in ("range", "words")}
     grids.update({f"search_mxu_kernel {prec}": search_mxu_grid(dev, prec)
                   for prec in ("split3", "highest")})
+    sass_name, sass_loops = sass_loop.kernel_loops(SASS_KERNEL, _build.library_path())
+    if not sass_loops:
+        raise AssertionError(f"{sass_name}: no MT loop in its SASS")
     phase("build", t, f"{_build.library_path().name} built in "
           f"{time.time() - t:.2f}s (ptxas: {ptxas or 'cached library'}; "
           f"{packet_ptxas}); persistent grids: " + ", ".join(
-              f"{k} {c} CTAs per SM x {n} SMs" for k, (c, n) in grids.items()))
+              f"{k} {c} CTAs per SM x {n} SMs" for k, (c, n) in grids.items())
+          + f"; SASS of {sass_name}'s MT loop (tools/sass_loop.py): " + ", ".join(
+              f"{lp['instructions']} instructions issued a pass, {lp['tests']} MT "
+              f"test(s): {lp['per_pair']:.1f} a pair (MT_OPS {MT_OPS})"
+              for lp in sass_loops))
 
     # 3. Kernel vs plain, on the card: bitwise.
     t = time.time()
     rng = np.random.default_rng(20261016)
-    max_abs = 0.0
-    n_cases = 0
-    timings, brute_work, brute_split = {}, {}, {}
-    for n_live in PHASE3_N_LIVE:
-        for n_rays in PHASE3_RAYS:
-            tri, o, d, alive = random_soup(rng, n_live, n_rays)
-            args = tuple(torch.from_numpy(x).to(dev) for x in (o, d, tri))
-            alive_t = torch.from_numpy(alive).to(dev)
-            dk, ik = search_brute(*args, n_live, alive_t)
-            dr, ir = search_brute_reference(*args, n_live, alive_t)
-            torch.cuda.synchronize()
-            if not torch.equal(ik, ir):
-                bad = int((ik != ir).sum())
-                raise AssertionError(f"n_live={n_live} R={n_rays}: idx differs "
-                                     f"on {bad} rays")
-            if not torch.equal(dk.view(torch.int32), dr.view(torch.int32)):
-                raise AssertionError(f"n_live={n_live} R={n_rays}: dst bits differ")
-            if int((ik >= 0).sum()) == 0 and n_live > 1:
-                raise AssertionError(f"n_live={n_live} R={n_rays}: no ray hit")
-            max_abs = max(max_abs, float((dk - dr).abs().max()))
-            n_cases += 1
-            if n_rays == TIMED_RAYS and n_live in TIMED_N_LIVE:
-                split = split_times(lambda: search_brute(*args, n_live, alive_t),
-                                    "search_brute")
-                timings[n_live] = (
-                    split["ms"],
-                    cuda_ms(lambda: search_brute_reference(*args, n_live, alive_t), 10),
-                )
-                brute_split[n_live] = split
-                brute_work[n_live] = (n_rays * n_live,
-                                      n_bytes(*args, alive_t, dk, ik))
-    times = ", ".join(
-        f"n_live={n}: kernel {k:.4f} ms (host {brute_split[n]['host']:.4f} ms a "
-        f"call, device {brute_split[n]['profiler']:.4f} ms a launch by "
-        f"torch.profiler), plain {p:.4f} ms, bound "
-        f"{bound(brute_work[n][0] * MT_OPS, 0, brute_work[n][1])[0]:.4f} ms"
-        for n, (k, p) in sorted(timings.items())
-    )
-    phase("kernel", t, f"search_brute == search_brute_reference bitwise on "
-          f"{n_cases} cases (n_live {PHASE3_N_LIVE} x R {PHASE3_RAYS}, "
-          f"{DEAD:.0%} dead); at R={TIMED_RAYS}: {times}")
+    brute = check_brute_kernel(dev, rng)
+    max_abs = brute["max_abs"]
+    timed = brute["timed"]
+    phase("kernel", t, f"search_brute == search_brute_reference bitwise, both "
+          f"entries, on {brute['cases']} cases (n_live {PHASE3_N_LIVE} x R "
+          f"{PHASE3_RAYS}, {DEAD:.0%} dead; then " + ", ".join(
+              f"{n} x {r} {lanes}" for n, r, lanes in PHASE3_EXTRA)
+          + f"); lanes a ray {brute['parts']}; at R={TIMED_RAYS}: " + "; ".join(
+              f"{label}: events {v['ms']:.4f} ms (host {v['host']:.4f} ms a call, "
+              f"device {v['profiler']:.4f} ms a launch by torch.profiler)"
+              + (f", plain {v['plain']:.4f} ms" if "plain" in v else "")
+              + (f", bound {v['bound'][0]:.4f} ms ({v['bound'][1]}, "
+                 f"{v['pairs']} live pairs; device at {v['bound'][0] / v['profiler']:.1%}), "
+                 f"all-pairs bound {v['all_bound'][0]:.4f} ms (device at "
+                 f"{v['all_bound'][0] / v['profiler']:.1%})" if "bound" in v else "")
+              for label, v in timed.items()))
 
     # 3b. The packet kernels vs plain, and vs the brute scan.
     t = time.time()
@@ -2937,15 +3029,14 @@ def main() -> int:
     # range and words streamed) triangles, and the probe at the device's
     # limit; the [kernel] lines have the others. Each bound counts the work
     # these inputs need: every (ray, triangle) pair the kernel's culling
-    # table makes it test (R x n_live for brute).
+    # table makes it test (live rays x n_live for brute).
     src = "raytracingc_tpu_torch/csrc/{}.cu"
     sources = {"search_union": src.format("search_words")}
     tpu = "raytracingc_tpu/ops/intersect_pallas.py:{}"
     packet_row = lambda label: (packet_times[label], packet_bound[label])
-    brute_pairs, brute_bytes = brute_work[max(TIMED_N_LIVE)]
+    k1 = timed[BRUTE_TIMED]
     rows = [
-        ("search_brute", tpu.format(1278), timings[max(TIMED_N_LIVE)],
-         bound(brute_pairs * MT_OPS, 0, brute_bytes), max_abs),
+        ("search_brute", tpu.format(1278), (k1["ms"], k1["plain"]), k1["bound"], max_abs),
         ("search_bitmask", tpu.format(1453),
          *packet_row("K2 box 10,240 (3 words)"), packet_err["search_bitmask"]),
         ("search_packed", tpu.format(869),

@@ -68,4 +68,16 @@ __device__ __forceinline__ float mt_distance(
   return valid ? dst : kMissDst;
 }
 
+// The running best, lexicographically on (dst, idx): among equal distances
+// the lowest index wins. The packet kernels compare ORIGINAL indices, so the
+// Morton permutation of their tables changes no winner; the brute kernel
+// merges the parts of one ray's scan with it.
+__device__ __forceinline__ void lex_min(float& best_d, int32_t& best_i,
+                                        float d, int32_t i) {
+  if (d < best_d || (d == best_d && i < best_i)) {
+    best_d = d;
+    best_i = i;
+  }
+}
+
 }  // namespace rtc

@@ -86,17 +86,6 @@ struct BlockCursor {
   }
 };
 
-// The running best, lexicographically on (dst, orig_idx): among equal
-// distances the lowest ORIGINAL index wins, whatever order the Morton
-// permutation put the triangles in.
-__device__ __forceinline__ void lex_min(float& best_d, int32_t& best_i,
-                                        float d, int32_t i) {
-  if (d < best_d || (d == best_d && i < best_i)) {
-    best_d = d;
-    best_i = i;
-  }
-}
-
 // Tests triangle `tri` against the packet's rays, keeping each ray's best.
 __device__ __forceinline__ void test_tri(const Ray (&ray)[kPacket],
                                          const Tri& tri,

@@ -195,10 +195,15 @@ def refresh_accel(accel: TriangleAccel, tris: Triangles, n_live: int) -> Triangl
     )
 
 
+def trivial_blocks(t: int) -> int:
+    """Blocks of the trivial accel of ``t`` triangles."""
+    return max(t // BLOCK, 1)
+
+
 def trivial_accel(tris: Triangles) -> TriangleAccel:
     """Identity accel: no reorder, every block 'always hit' (brute force)."""
     t = tris.count
-    n_blocks = max(t // BLOCK, 1)
+    n_blocks = trivial_blocks(t)
     dev = tris.a.device
     return TriangleAccel(
         triangles=tris,

@@ -12,7 +12,8 @@ inside a ``torch.autograd.Function`` instead: functorch calls its
 and reverse mode see outputs marked non-differentiable, and the body
 (kernel launch, launch count, or the plain version on a CPU tensor; a
 collective) runs exactly as without a transform: the same bits, no host
-sync.
+sync. A call that no transform, forward-AD level or gradient can see (the
+production render) runs the body directly, at the cost of a plain call.
 
 Under ``torch.func.vmap`` (and ``torch.func.jacfwd``, a ``vmap`` of
 ``jvp``) the body runs by :func:`vmap_by_element`: once, unbatched, when no
@@ -30,6 +31,7 @@ import functools
 import inspect
 
 import torch
+from torch.autograd import forward_ad
 
 
 def vmap_by_element(apply, info, in_dims, *args):
@@ -137,17 +139,35 @@ def lane_count(mask: torch.Tensor):
     return int(mask.sum())
 
 
+def _plain_call(args, kwargs) -> bool:
+    """Whether a call can run its body directly: no functorch transform is
+    active, no forward-AD level is open, and no tensor argument requires
+    grad while grad mode is on. Then no input carries a derivative, the
+    body's outputs carry none, and the Function would change nothing."""
+    if (torch._C._are_functorch_transforms_active()
+            or forward_ad._current_level >= 0):
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not any(isinstance(a, torch.Tensor) and a.requires_grad
+                   for a in (*args, *kwargs.values()))
+
+
 def no_tangent(fn):
     """Decorate a function returning a tensor or a tuple of tensors (a
     search wrapper's ``(dst, idx)``) so that it runs on plain tensors under
     ``torch.func.jvp``, ``torch.autograd.forward_ad``, reverse mode and
-    ``torch.func.vmap``, its outputs carrying no derivative. Keyword
-    arguments are bound to their positions first
+    ``torch.func.vmap``, its outputs carrying no derivative. A call that
+    needs none of that (:func:`_plain_call`: the production render) runs
+    the body directly, with no Function and no argument binding. Otherwise
+    keyword arguments are bound to their positions first
     (``autograd.Function.apply`` takes positions only)."""
     sig = inspect.signature(fn)
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
+        if _plain_call(args, kwargs):
+            return fn(*args, **kwargs)
         bound = sig.bind(*args, **kwargs)
         bound.apply_defaults()
         return _NoTangent.apply(fn, *bound.args)

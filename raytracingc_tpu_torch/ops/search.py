@@ -39,8 +39,8 @@ slicing (``max_rays``, ``:1920-1985``), which bounds the TPU kernels' scalar
 memory and changes no result; the CUDA kernels read their tables from
 global memory.
 
-Knobs, read on every call and validated loudly (``ValueError`` on a typo or
-an out-of-range integer):
+Knobs, read on every call (parsed again whenever a raw value changes) and
+validated loudly (``ValueError`` on a typo or an out-of-range integer):
 
 * ``RTC_KERNEL``: ``auto`` (default), ``brute``, ``packet`` or ``mxu``.
 * ``RTC_MXU_PRECISION``: ``split3`` (default) or ``highest``, the mxu
@@ -73,7 +73,12 @@ import sys
 import torch
 
 from raytracingc_tpu_torch.ops import culling
-from raytracingc_tpu_torch.ops.accel import BLOCK, TriangleAccel, trivial_accel
+from raytracingc_tpu_torch.ops.accel import (
+    BLOCK,
+    TriangleAccel,
+    trivial_accel,
+    trivial_blocks,
+)
 from raytracingc_tpu_torch.ops.intersect_mxu import (
     MXU_MAX_TRIS,
     PRECISIONS,
@@ -140,6 +145,18 @@ class Knobs:
 
     @classmethod
     def read(cls) -> "Knobs":
+        """The knobs of the environment as it stands: parsed once per set
+        of raw values, and again whenever one of them changes. A value that
+        fails to parse is never kept, so it raises on every call."""
+        raw = tuple(map(os.environ._data.get, _KNOB_KEYS))
+        if _parsed and _parsed[0] == raw:
+            return _parsed[1]
+        knobs = cls._parse()
+        _parsed[:] = [raw, knobs]
+        return knobs
+
+    @classmethod
+    def _parse(cls) -> "Knobs":
         kernel = _choice("RTC_KERNEL", "auto")
         cull = _choice("RTC_CULL", "bitmask")
         _choice("RTC_EXTRACT", "reduce")
@@ -157,6 +174,17 @@ class Knobs:
             stream_max_t=_int("RTC_STREAM_MAX_T", culling.STREAM_MAX_RESIDENT_T, 0),
             stream_tile=_int("RTC_STREAM_TILE", culling.STREAM_TILE, 1),
         )
+
+
+# Every environment variable Knobs._parse reads, and the last parse:
+# [raw values, Knobs], empty before the first. The raw values come from the
+# bytes mapping under os.environ (which os.environ's own writes keep
+# current): os.environ.get on a missing name raises and catches a KeyError,
+# ~1 us a name on the card's host, 12 names on every search.
+_KNOB_NAMES = (*_CHOICES, "RTC_STREAM_GRANULE", "RTC_BRUTE_MAX",
+               "RTC_BITMASK_MAX_WORDS", "RTC_STREAM_MAX_T", "RTC_STREAM_TILE")
+_KNOB_KEYS = tuple(map(os.fsencode, _KNOB_NAMES))
+_parsed: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,11 +208,14 @@ def mxu_fits(n_blocks: int) -> bool:
             and -(-n_blocks // culling.BITS_PER_WORD) <= MXU_MAX_WORDS)
 
 
+_BRUTE = Route("brute", "K1")
+
+
 def route(n_live: int, n_blocks: int, knobs: Knobs) -> Route:
     """The branch ``search_triangles_pallas`` takes for this scene size."""
     if knobs.kernel == "brute" or (knobs.kernel == "auto"
                                    and n_live <= knobs.brute_max):
-        return Route("brute", "K1")
+        return _BRUTE
     if knobs.kernel == "mxu" and mxu_fits(n_blocks):
         return Route("mxu", "K8")
     t = n_blocks * BLOCK
@@ -244,11 +275,12 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
     if backend == "pallas" and o.device.type != "cuda":
         raise RuntimeError(
             f"backend='pallas' needs a CUDA device; the rays are on {o.device}")
+    n_blocks = trivial_blocks(tris.count) if accel is None else accel.n_blocks
+    way = route(n_live, n_blocks, knobs)
+    if way.kernel == "brute":  # the pack-free entry: no accel, no packing
+        return search_brute(o, d, tris, n_live, alive)
     if accel is None:
         accel = trivial_accel(tris)
-    way = route(n_live, accel.n_blocks, knobs)
-    if way.kernel == "brute":
-        return search_brute(o, d, pack_triangles(tris, n_live), n_live, alive)
     if knobs.kernel == "mxu" and way.kernel != "mxu":
         # The JAX package's own routing rule, printed so that an A/B run
         # never times another kernel unknowingly.

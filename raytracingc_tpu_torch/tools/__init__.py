@@ -8,16 +8,18 @@ timed on their ray sets),
 ``dispatch_calibration`` (the brute/packet crossover that sets
 ``RTC_BRUTE_MAX``: rays/s of each leg on box_scene tessellations) and
 ``granule_analysis`` (the dead MT work inside set granule bits of the words
-route at streamed scale). ``packets`` holds the seeded
+route at streamed scale) and ``sass_loop`` (issued instructions per MT test
+in a search kernel's SASS). ``packets`` holds the seeded
 packet workloads they, chip_smoke.py and the tests share. Importing one runs
 nothing. This module holds what the tools and the examples share: the
-in-repo scene, the ``--device`` check, timing, the card's name and the
-knobs' context.
+in-repo scene, the ``--device`` check, timing (events, and a call's
+host / device split), the card's name and the knobs' context.
 """
 
 import contextlib
 import os
 import subprocess
+import time
 
 BOX_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                          "examples", "box_scene.txt")
@@ -49,6 +51,36 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def split_times(call, kernel: str) -> dict:
+    """A kernel's times at one launch, ``call()`` calling its wrapper once:
+    ``ms`` the call by CUDA events over 50 calls (host included),
+    ``host`` the host's milliseconds per call (200 calls on a clock with no
+    sync between them: the launch queue holds them, so a slower device does
+    not stall the host), ``profiler`` the device duration per launch of the
+    CUDA kernels whose name holds ``kernel``, from torch.profiler over 20
+    calls."""
+    import torch
+
+    out = {"ms": cuda_ms(call, 50)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        call()
+    out["host"] = (time.perf_counter() - t) / 200 * 1e3
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "device_time_total", 0) or getattr(
+        e, "cuda_time_total", 0)
+    durs = [dev_us(e) / max(e.count, 1) for e in prof.key_averages()
+            if kernel in e.key and dev_us(e) > 0]
+    out["profiler"] = durs[0] / 1e3 if durs else float("nan")
+    return out
 
 
 def card_name() -> str:

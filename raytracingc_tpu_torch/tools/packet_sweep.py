@@ -1,5 +1,5 @@
-"""Search-kernel timing (K2-K9): the bitmask, packed, range, words, MXU and
-union-walk wrappers over the timed scenes and their ray sets.
+"""Search-kernel timing (K1-K9): the brute, bitmask, packed, range, words,
+MXU and union-walk wrappers over the timed scenes and their ray sets.
 
 Times the bitmask (K2), packed (K3), range (K4, K5) and words (K6, K7)
 wrappers by CUDA events on chip_smoke.py's timed packet scenes (box_scene
@@ -23,6 +23,16 @@ its contract) and printed with a digest of its result, so that two builds
 can be compared bit for bit; the union walk K9 at 10,240 triangles, bit
 for bit.
 
+The brute search K1 runs at box_scene tessellated to 640 triangles (and
+to 10,240 under ``RTC_KERNEL=brute``: the kernel's tiled walk), at
+``--rays`` rays and a quarter of that (a compacted bounce), on both ray
+sets with their dead lanes and with every lane live (``alive=None``), from
+its own generator: through ``search_brute`` on packed rows and through the
+brute leg of ``search.search_triangles`` (no grad, as in the production
+render), each bit for bit equal to the plain scan, each timed by
+``tools.split_times`` (events with the host, the host per call and the
+device time of a launch by torch.profiler).
+
 It needs nothing newer than the package's first packet and range kernels,
 so this file, ``tools/packets.py`` and ``tools/__init__.py`` can be copied
 into an older checkout to time that checkout's kernels on the same rays (an
@@ -45,13 +55,18 @@ import types
 import numpy as np
 import torch
 
-from raytracingc_tpu_torch.ops import culling, search
+from raytracingc_tpu_torch.ops import _build, culling, search
 from raytracingc_tpu_torch.ops.accel import BLOCK, build_accel
 from raytracingc_tpu_torch.ops.intersect_mxu import search_mxu, search_mxu_reference
 from raytracingc_tpu_torch.ops.search_bitmask import (
     bitmask_table,
     search_bitmask,
     search_bitmask_reference,
+)
+from raytracingc_tpu_torch.ops.search_brute import (
+    pack_triangles,
+    search_brute,
+    search_brute_reference,
 )
 from raytracingc_tpu_torch.ops.search_packed import (
     packed_table,
@@ -68,7 +83,7 @@ from raytracingc_tpu_torch.ops.search_words import (
     search_words,
     search_words_reference,
 )
-from raytracingc_tpu_torch.tools import BOX_SCENE, cuda_ms, knobs_set
+from raytracingc_tpu_torch.tools import BOX_SCENE, cuda_ms, knobs_set, split_times
 from raytracingc_tpu_torch.tools.packets import (
     DEAD,
     RAY_SETS,
@@ -84,7 +99,10 @@ from raytracingc_tpu_torch.tools.union_walk_ab import load_scene
 RANGE = {"RTC_CULL": "range"}
 WORDS = {"RTC_STREAM_CULL": "words"}
 MXU = {"RTC_KERNEL": "mxu"}
-SCENES = (("K2 box 10,240", 5, {}), ("K3 box 40,960 resident", 6, {}),
+BRUTE = {"RTC_KERNEL": "brute"}
+SCENES = (("K1 box 640 (brute)", 3, {}),
+          ("K1 box 10,240 tiled (RTC_KERNEL=brute)", 5, BRUTE),
+          ("K2 box 10,240", 5, {}), ("K3 box 40,960 resident", 6, {}),
           ("K3 box 163,840 streamed", 7, {}),
           ("K4 box 40,960 (RTC_CULL=range)", 6, RANGE),
           ("K5 box 163,840 streamed (RTC_CULL=range)", 7, RANGE),
@@ -208,6 +226,40 @@ def time_programs(label, scene, set_name, o, d, alive, iters):
               f"{digest(kd, ki)}", flush=True)
 
 
+def time_brute(label, scene, rng, n_rays, dev, origins, knobs=None):
+    """K1 at ``n_rays`` and a quarter of that: both ray sets, with their
+    dead lanes and all lanes live; the packed entry and the dispatch's
+    brute leg (under ``knobs``), each against the plain scan bit for bit,
+    then timed."""
+    tris, n = scene.triangles, scene.n_triangles
+    tri = pack_triangles(tris, n)
+    for r in (n_rays, n_rays // 4):
+        for set_name, make in RAY_SETS.items():
+            o, d, alive = (torch.from_numpy(x).to(dev) for x in make(rng, r, *origins))
+            for lanes, al in ((f"{DEAD:.0%} dead", alive), ("all live", None)):
+                want_d, want_i = search_brute_reference(o, d, tri, n, al)
+                calls = {
+                    "packed": lambda: search_brute(o, d, tri, n, al),
+                    "dispatch leg": lambda: search.search_triangles(
+                        o, d, tris, n, alive=al, accel=scene.accel),
+                }
+                for name, call in calls.items():
+                    with torch.no_grad(), knobs_set(knobs or {}):
+                        got_d, got_i = call()
+                        if not (torch.equal(got_i, want_i) and torch.equal(
+                                got_d.view(torch.int32), want_d.view(torch.int32))):
+                            raise AssertionError(f"{label} {set_name} R={r} {lanes} "
+                                                 f"{name}: differs from the plain scan")
+                        v = split_times(call, "search_brute")
+                    pairs = (r if al is None else int(al.sum())) * n
+                    print(f"[wrappers] {label} {set_name} R={r} {lanes} ({name}; "
+                          f"{pairs} live pairs): events {v['ms']:.4f} ms, host "
+                          f"{v['host']:.4f} ms a call, device {v['profiler']:.4f} ms "
+                          f"a launch", flush=True)
+    print(f"[ptxas] search_brute_kernel: "
+          f"{_build.ptxas_report('search_brute_kernel') or 'cached library'}", flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="python -m raytracingc_tpu_torch.tools.packet_sweep",
                                 description=__doc__.splitlines()[0])
@@ -232,6 +284,10 @@ def main(argv: list[str] | None = None) -> int:
             continue
         scene = load(levels, dev, rng)
         origins = BOX_ORIGINS if isinstance(levels, int) else SOUP_ORIGINS
+        if label.startswith("K1"):
+            time_brute(label, scene, np.random.default_rng([args.seed, 1]), args.rays,
+                       dev, origins, knobs)
+            continue
         ray_sets = dict(RAY_SETS)
         if knobs in (RANGE, WORDS):
             ray_sets["whole-plane"] = lambda *a: wide_span_rays(*a, scene.accel)
