@@ -53,7 +53,7 @@ PHASE3_RAYS = (65536, 100003)  # one full pixel chunk, one ragged size
 # every phase.
 TIMED_N_LIVE = (10, 640)  # box_scene, and box_scene tessellated 64-fold
 TIMED_RAYS = 65536
-BRUTE_TIMED = "640"  # phase 3's case of the kernel line's K1 row
+BRUTE_TIMED = "640 pack-free"  # phase 3's case of the kernel line's K1 row
 # Each case runs K1's two entries, the packed rows and the pack-free one
 # (the scene's Triangles: a, b = a + AB, c = a + AC, the normals), each
 # held bit for bit to the torch scan of its own rows, and the kernel's lanes
@@ -72,7 +72,9 @@ PHASE3_EXTRA_SEED = 20261018
 # Timed at R = TIMED_RAYS (events with the host, the host per call, and
 # torch.profiler's device time): the packed entry at TIMED_N_LIVE with DEAD
 # dead lanes, at 640 triangles also with every lane live (alive=None) and
-# through the pack-free entry, and the brute leg of search_triangles on
+# through the pack-free entry (the one the search dispatch takes, so the
+# kernel line's row; its plain version packs the rows, then scans), and the
+# brute leg of search_triangles on
 # box_scene (10 triangles, no accel used, an all-true alive and no grad:
 # the production render's primary search). Each bound counts the live
 # pairs (live rays x n_live), as the packet rows count the pairs their
@@ -909,7 +911,9 @@ def check_brute_kernel(dev, rng) -> dict:
             if n_live == max(TIMED_N_LIVE):
                 free = (o, d, tris.a, tris.b, tris.c, tris.normal)
                 split(f"{n_live} pack-free", lambda: search_brute(o, d, tris, n_live, alive_t),
-                      free, n_live, alive_t, (dk, ik))
+                      free, n_live, alive_t, (dk, ik),
+                      lambda: search_brute_reference(o, d, pack_triangles(tris, n_live),
+                                                     n_live, alive_t))
         if gen is extra_rng and lanes == "none" and n_live == max(TIMED_N_LIVE):
             args = (o, d, tri)
             split(f"{n_live} all live", lambda: search_brute(*args, n_live), args,

@@ -57,22 +57,21 @@
 //   tools/packet_sweep.py --match K1 from edited copies).
 // - The table staged once per CTA. Up to kTileRows triangles (72 KB: three
 //   CTAs fit an SM's shared memory), the whole [n_live, 12] table is brought
-//   into shared memory by bulk asynchronous copies on an mbarrier
-//   (bulk_copy.cuh), issued by one thread before the compaction, so the
-//   copy overlaps it; each row is read back as three float4. A table of
-//   given vertices (the pack-free entry, rtc_search_brute_tris) is staged
-//   by plain loads, each thread forming AB = b - a and AC = c - a of its
-//   rows with the same IEEE subtraction as
-//   ops/search_brute.py::pack_triangles, so the same bits. Larger tables
-//   (RTC_KERNEL=brute at any size) are walked in tiles of kTileRows rows,
-//   with two barriers per tile.
+//   into shared memory by every thread's plain loads before the compaction,
+//   and each row is read back as three float4. Packed rows are copied as
+//   float4; a table of given vertices (the pack-free entry,
+//   rtc_search_brute_tris) has each thread form AB = b - a and AC = c - a
+//   of its rows with the same IEEE subtraction as
+//   ops/search_brute.py::pack_triangles, so the same bits. (Bulk
+//   asynchronous copies on an mbarrier staged the packed rows no faster:
+//   PERF.md, K1's redesign.) Larger tables (RTC_KERNEL=brute at any size)
+//   are walked in tiles of kTileRows rows, with two barriers per tile.
 // The kernel launches on the caller's stream, does not synchronise and
 // allocates nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bulk_copy.cuh"
 #include "mt.cuh"
 
 namespace {
@@ -88,7 +87,6 @@ constexpr int kMinBlocksTiled = 2;
 constexpr int kRow = 12;                            // A, AB, AC, N
 constexpr int kTileRows = 1536;                     // rows staged at once
 constexpr int kTileBytes = kTileRows * kRow * 4;    // 73,728
-constexpr uint32_t kChunkBytes = 32768;             // bytes per bulk copy
 constexpr int64_t kFillLanes = 132 * 2048;          // an H100's resident threads
 constexpr int kMaxParts = 16;
 constexpr int kMinPartRows = 16;                    // rows per part, at least
@@ -178,29 +176,12 @@ search_brute_kernel(const float* __restrict__ o,        // [R, 3]
   extern __shared__ __align__(16) float4 s_rows[];  // [min(n_live, kTileRows) * 3]
   __shared__ int s_ray[kRays];                      // the live rays, packed
   __shared__ int s_count[kWarps];
-  __shared__ __align__(8) uint64_t s_bar;
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int first = blockIdx.x * kRays;
-  const bool bulk = !kTiled && n_live > 0 && tb.rows != nullptr &&
-                    (reinterpret_cast<uintptr_t>(tb.rows) & 15) == 0;
-  const uint32_t bar = rtc::smem_addr(&s_bar);
-  if (bulk) {
-    if (t == 0) {
-      rtc::mbar_init(bar);
-      const uint32_t bytes = static_cast<uint32_t>(n_live) * kRow * 4u;
-      rtc::mbar_expect_tx(bar, bytes);
-      const char* src = reinterpret_cast<const char*>(tb.rows);
-      for (uint32_t off = 0; off < bytes; off += kChunkBytes) {
-        const uint32_t len = bytes - off < kChunkBytes ? bytes - off : kChunkBytes;
-        rtc::bulk_copy(rtc::smem_addr(s_rows) + off, src + off, len, bar);
-      }
-    }
-  } else {
-    stage(tb, 0, n_live < kTileRows ? n_live : kTileRows, s_rows);
-  }
+  stage(tb, 0, n_live < kTileRows ? n_live : kTileRows, s_rows);
 
   // Pack the live rays of the CTA into the first groups of lanes.
   bool live = false;
@@ -216,7 +197,7 @@ search_brute_kernel(const float* __restrict__ o,        // [R, 3]
   }
   const uint32_t mask = __ballot_sync(0xffffffffu, live);
   if (lane == 0) s_count[warp] = __popc(mask);
-  __syncthreads();  // also: the mbarrier is initialised, plain staging done
+  __syncthreads();  // also: the first tile is staged
   int k = 0;
   int before = 0;
 #pragma unroll
@@ -237,11 +218,7 @@ search_brute_kernel(const float* __restrict__ o,        // [R, 3]
   float best_d = kMissDst;
   int32_t best_i = -1;
   if (!kTiled) {
-    if (!busy) {
-      if (bulk && t == 0) rtc::mbar_wait(bar, 0);  // the copy lands before the CTA leaves
-      return;
-    }
-    if (bulk) rtc::mbar_wait(bar, 0);
+    if (!busy) return;
     if (has_ray) scan<S>(s_rows, 0, n_live, part, ray, best_d, best_i);
   } else {
     for (int base = 0; base < n_live; base += kTileRows) {

@@ -148,7 +148,7 @@ class Knobs:
         """The knobs of the environment as it stands: parsed once per set
         of raw values, and again whenever one of them changes. A value that
         fails to parse is never kept, so it raises on every call."""
-        raw = tuple(map(os.environ._data.get, _KNOB_KEYS))
+        raw = tuple(map(os.environ.get, _KNOB_NAMES))
         if _parsed and _parsed[0] == raw:
             return _parsed[1]
         knobs = cls._parse()
@@ -177,13 +177,9 @@ class Knobs:
 
 
 # Every environment variable Knobs._parse reads, and the last parse:
-# [raw values, Knobs], empty before the first. The raw values come from the
-# bytes mapping under os.environ (which os.environ's own writes keep
-# current): os.environ.get on a missing name raises and catches a KeyError,
-# ~1 us a name on the card's host, 12 names on every search.
+# [raw values, Knobs], empty before the first.
 _KNOB_NAMES = (*_CHOICES, "RTC_STREAM_GRANULE", "RTC_BRUTE_MAX",
                "RTC_BITMASK_MAX_WORDS", "RTC_STREAM_MAX_T", "RTC_STREAM_TILE")
-_KNOB_KEYS = tuple(map(os.fsencode, _KNOB_NAMES))
 _parsed: list = []
 
 
