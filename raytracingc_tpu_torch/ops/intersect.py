@@ -21,6 +21,9 @@ index) rule, so the merged winner equals a whole-scene search bit for bit.
 The resolve gathers the winner's row on the rank that owns it, zeros on the
 others, and sums across the group (``raytracingc_tpu/ops/intersect.py``'s
 masked ``psum``).
+
+Each search is one ``rtc.search`` span (dispatch, kernel launch, spheres,
+merge) and each resolve one ``rtc.resolve`` span.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch.distributed as dist
 from raytracingc_tpu_torch.ops.search import search_triangles
 from raytracingc_tpu_torch.ops.search_range import MISS_KEY, pack_keys, unpack_keys
 from raytracingc_tpu_torch.scene.types import EPSILON, MISS_DST, Scene
+from raytracingc_tpu_torch.utils.profiling import trace_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,35 +138,36 @@ def nearest_hit(o, d, scene: Scene, backend: str = "auto", alive=None) -> HitRef
     A block-sharded scene (``scene.shard``) merges its ranks' winners (module
     docstring); every rank of the group must call this with the same rays.
     """
-    r = o.shape[0]
-    shard = scene.shard
-    n_live = scene.n_triangles
-    if shard is not None:  # the live rows of this rank's slice
-        lo = shard.rank * scene.triangles.count
-        n_live = min(max(n_live - lo, 0), scene.triangles.count)
-    tri_dst, tri_idx = search_triangles(
-        o, d, scene.triangles, n_live, alive=alive, backend=backend,
-        accel=scene.accel, packet_only=shard is not None,
-    )
-    if shard is not None:
-        if scene.accel is None or backend == "xla":  # local indices
-            tri_idx = torch.where(tri_idx >= 0, tri_idx + lo, tri_idx)
-        keys = torch.where(tri_idx >= 0, pack_keys(tri_dst, tri_idx), MISS_KEY)
-        dist.all_reduce(keys, op=dist.ReduceOp.MIN, group=shard.group)
-        tri_dst, tri_idx = unpack_keys(keys)
-    if scene.n_spheres > 0:
-        sph_dst, sph_idx = _search_spheres(o, d, scene.spheres)
-    else:
-        sph_dst = torch.full((r,), MISS_DST, dtype=torch.float32, device=o.device)
-        sph_idx = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+    with trace_annotation("rtc.search"):
+        r = o.shape[0]
+        shard = scene.shard
+        n_live = scene.n_triangles
+        if shard is not None:  # the live rows of this rank's slice
+            lo = shard.rank * scene.triangles.count
+            n_live = min(max(n_live - lo, 0), scene.triangles.count)
+        tri_dst, tri_idx = search_triangles(
+            o, d, scene.triangles, n_live, alive=alive, backend=backend,
+            accel=scene.accel, packet_only=shard is not None,
+        )
+        if shard is not None:
+            if scene.accel is None or backend == "xla":  # local indices
+                tri_idx = torch.where(tri_idx >= 0, tri_idx + lo, tri_idx)
+            keys = torch.where(tri_idx >= 0, pack_keys(tri_dst, tri_idx), MISS_KEY)
+            dist.all_reduce(keys, op=dist.ReduceOp.MIN, group=shard.group)
+            tri_dst, tri_idx = unpack_keys(keys)
+        if scene.n_spheres > 0:
+            sph_dst, sph_idx = _search_spheres(o, d, scene.spheres)
+        else:
+            sph_dst = torch.full((r,), MISS_DST, dtype=torch.float32, device=o.device)
+            sph_idx = torch.full((r,), -1, dtype=torch.int32, device=o.device)
 
-    # Triangles are scanned after spheres in the C loop, so they win only on
-    # a strictly smaller distance.
-    is_tri = tri_dst < sph_dst
-    best = torch.where(is_tri, tri_dst, sph_dst)
-    idx = torch.where(is_tri, tri_idx, sph_idx)
-    hit = best < MISS_DST
-    return HitRef(hit=hit, is_tri=is_tri, idx=torch.where(hit, idx, -1))
+        # Triangles are scanned after spheres in the C loop, so they win only on
+        # a strictly smaller distance.
+        is_tri = tri_dst < sph_dst
+        best = torch.where(is_tri, tri_dst, sph_dst)
+        idx = torch.where(is_tri, tri_idx, sph_idx)
+        hit = best < MISS_DST
+        return HitRef(hit=hit, is_tri=is_tri, idx=torch.where(hit, idx, -1))
 
 
 # Padded triangle count from which RTC_RESOLVE=auto resolves through the
@@ -238,65 +243,66 @@ def resolve_hit(o, d, ref: HitRef, scene: Scene) -> Hit:
     rank that owns the winner and sums across the group (module docstring);
     it is forward-only.
     """
-    tri_sel = ref.hit & ref.is_tri
-    sph_sel = ref.hit & ~ref.is_tri
-    tri_idx = torch.where(tri_sel, ref.idx, 0).long()
-    sph_idx = torch.where(sph_sel, ref.idx, 0).long()
-    sph = scene.spheres
+    with trace_annotation("rtc.resolve"):
+        tri_sel = ref.hit & ref.is_tri
+        sph_sel = ref.hit & ~ref.is_tri
+        tri_idx = torch.where(tri_sel, ref.idx, 0).long()
+        sph_idx = torch.where(sph_sel, ref.idx, 0).long()
+        sph = scene.spheres
 
-    if scene.resolve_perm is not None:  # see with_perm_resolve
-        slot = scene.accel.perm_of_orig[tri_idx.clamp_max(scene.triangles.count - 1)]
-        tri_rows = scene.resolve_perm[slot.long()]
-    elif scene.shard is not None:
-        tri_rows = _sharded_rows(scene, tri_sel, tri_idx)
-    else:
-        tri_rows = _tri_table(scene.triangles)[tri_idx]  # (R, 17)
-    a = tri_rows[:, 0:3]
-    b = tri_rows[:, 3:6]
-    c = tri_rows[:, 6:9]
-    ab = b - a
-    ac = c - a
-    h = _cross(d, ac)
-    det = _dot(ab, h)
-    # Guard at the search's EPSILON: a winning triangle has |det| >= EPSILON,
-    # so this only keeps unselected lanes finite.
-    inv_det = 1.0 / torch.where(det.abs() < EPSILON, 1.0, det)
-    q = _cross(o - a, ab)
-    tri_dst = _dot(ac, q) * inv_det
-    tri_normal = tri_rows[:, 9:12]
+        if scene.resolve_perm is not None:  # see with_perm_resolve
+            slot = scene.accel.perm_of_orig[tri_idx.clamp_max(scene.triangles.count - 1)]
+            tri_rows = scene.resolve_perm[slot.long()]
+        elif scene.shard is not None:
+            tri_rows = _sharded_rows(scene, tri_sel, tri_idx)
+        else:
+            tri_rows = _tri_table(scene.triangles)[tri_idx]  # (R, 17)
+        a = tri_rows[:, 0:3]
+        b = tri_rows[:, 3:6]
+        c = tri_rows[:, 6:9]
+        ab = b - a
+        ac = c - a
+        h = _cross(d, ac)
+        det = _dot(ab, h)
+        # Guard at the search's EPSILON: a winning triangle has |det| >= EPSILON,
+        # so this only keeps unselected lanes finite.
+        inv_det = 1.0 / torch.where(det.abs() < EPSILON, 1.0, det)
+        q = _cross(o - a, ab)
+        tri_dst = _dot(ac, q) * inv_det
+        tri_normal = tri_rows[:, 9:12]
 
-    sph_rows = torch.cat(
-        [sph.center, sph.radius[:, None], sph.albedo,
-         sph.emission[:, None], sph.smoothness[:, None]],
-        dim=1,
-    )[sph_idx]  # (R, 9)
-    center = sph_rows[:, 0:3]
-    radius = sph_rows[:, 3]
-    safe_radius = torch.where(radius > 0.0, radius, 1.0)
-    offset = o - center
-    bq = _dot(offset, d)
-    delta = bq * bq - (_dot(offset, offset) - safe_radius * safe_radius)
-    sq = torch.sqrt(torch.clamp_min(delta, 1e-20))
-    sph_dst = torch.where(-bq - sq < EPSILON, -bq + sq, -bq - sq)
+        sph_rows = torch.cat(
+            [sph.center, sph.radius[:, None], sph.albedo,
+             sph.emission[:, None], sph.smoothness[:, None]],
+            dim=1,
+        )[sph_idx]  # (R, 9)
+        center = sph_rows[:, 0:3]
+        radius = sph_rows[:, 3]
+        safe_radius = torch.where(radius > 0.0, radius, 1.0)
+        offset = o - center
+        bq = _dot(offset, d)
+        delta = bq * bq - (_dot(offset, offset) - safe_radius * safe_radius)
+        sq = torch.sqrt(torch.clamp_min(delta, 1e-20))
+        sph_dst = torch.where(-bq - sq < EPSILON, -bq + sq, -bq - sq)
 
-    dst = torch.where(tri_sel, tri_dst, torch.where(sph_sel, sph_dst, MISS_DST))
-    point = o + d * dst[:, None]  # computed even on a miss, as the C code does
-    sph_normal = (point - center) / safe_radius[:, None]
-    normal = torch.where(tri_sel[:, None], tri_normal, sph_normal)
-    normal = torch.where(ref.hit[:, None], normal, 0.0)
+        dst = torch.where(tri_sel, tri_dst, torch.where(sph_sel, sph_dst, MISS_DST))
+        point = o + d * dst[:, None]  # computed even on a miss, as the C code does
+        sph_normal = (point - center) / safe_radius[:, None]
+        normal = torch.where(tri_sel[:, None], tri_normal, sph_normal)
+        normal = torch.where(ref.hit[:, None], normal, 0.0)
 
-    albedo = torch.where(tri_sel[:, None], tri_rows[:, 12:15], sph_rows[:, 4:7])
-    emission = torch.where(tri_sel, tri_rows[:, 15], sph_rows[:, 7])
-    smoothness = torch.where(tri_sel, tri_rows[:, 16], sph_rows[:, 8])
-    return Hit(
-        hit=ref.hit,
-        dst=dst,
-        point=point,
-        normal=normal,
-        albedo=torch.where(ref.hit[:, None], albedo, 0.0),
-        emission=torch.where(ref.hit, emission, 0.0),
-        smoothness=torch.where(ref.hit, smoothness, 0.0),
-    )
+        albedo = torch.where(tri_sel[:, None], tri_rows[:, 12:15], sph_rows[:, 4:7])
+        emission = torch.where(tri_sel, tri_rows[:, 15], sph_rows[:, 7])
+        smoothness = torch.where(tri_sel, tri_rows[:, 16], sph_rows[:, 8])
+        return Hit(
+            hit=ref.hit,
+            dst=dst,
+            point=point,
+            normal=normal,
+            albedo=torch.where(ref.hit[:, None], albedo, 0.0),
+            emission=torch.where(ref.hit, emission, 0.0),
+            smoothness=torch.where(ref.hit, smoothness, 0.0),
+        )
 
 
 def intersect(o, d, scene: Scene, backend: str = "auto") -> Hit:

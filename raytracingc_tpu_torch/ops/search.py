@@ -62,6 +62,9 @@ validated loudly (``ValueError`` on a typo or an out-of-range integer):
 
 Every default is the JAX package's value, measured on a TPU and not yet
 re-measured on a GPU.
+
+The culling prelude of a packet or mxu route (packets and their culling
+words, in torch) is one ``rtc.cull`` span.
 """
 
 from __future__ import annotations
@@ -95,6 +98,7 @@ from raytracingc_tpu_torch.ops.search_packed import search_packed
 from raytracingc_tpu_torch.ops.search_range import search_range
 from raytracingc_tpu_torch.ops.search_words import search_words
 from raytracingc_tpu_torch.scene.types import Triangles
+from raytracingc_tpu_torch.utils.profiling import trace_annotation
 
 BRUTE_MAX_TRIS = 1536
 BITMASK_MAX_WORDS = 8
@@ -236,6 +240,13 @@ def route(n_live: int, n_blocks: int, knobs: Knobs) -> Route:
     return Route("range", "K4", t, 1)
 
 
+def _cull(o, d, alive, words, *args):
+    """The culling prelude: ``words(*packets, *args)`` of the rays' 8-ray
+    packets (``culling.packets``)."""
+    with trace_annotation("rtc.cull"):
+        return words(*culling.packets(o, d, alive), *args)
+
+
 def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
                      backend: str = "auto", accel: TriangleAccel | None = None,
                      packet_only: bool = False):
@@ -284,9 +295,8 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
               f"{accel.n_blocks * BLOCK} padded triangles (cap {MXU_MAX_TRIS}); "
               "falling back to the packet kernel", file=sys.stderr)
 
-    o_p, d_p, a_p = culling.packets(o, d, alive)
     if way.kernel == "mxu":
-        words, flags = culling.program_union_words(o_p, d_p, a_p, accel)
+        words, flags = _cull(o, d, alive, culling.program_union_words, accel)
         coeffs = accel.mxu_coeffs
         if coeffs is None:
             coeffs = pack_coeffs_mxu(accel.triangles, accel.orig_idx)
@@ -298,17 +308,17 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
         plane = torch.cat([t.a.T, (t.b - t.a).T, (t.c - t.a).T, t.normal.T])
     plane = plane.contiguous()
     if way.kernel == "bitmask":
-        words = culling.packet_block_masks(o_p, d_p, a_p, accel)
+        words = _cull(o, d, alive, culling.packet_block_masks, accel)
         return search_bitmask(o, d, words, plane, accel.orig_idx)
     plane, orig_idx = culling.stream_tile_pad(plane, accel.orig_idx, way.tile)
     bpt = way.tile // BLOCK
     if way.kernel == "packed":
-        words = culling.packet_tile_words_multi(
-            o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
+        words = _cull(o, d, alive, culling.packet_tile_words_multi, accel,
+                      way.n_tiles, bpt, way.granule)
         return search_packed(o, d, words, plane, orig_idx, way.tile, way.granule)
     if way.kernel == "words":
-        words = culling.packet_tile_words(
-            o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
+        words = _cull(o, d, alive, culling.packet_tile_words, accel,
+                      way.n_tiles, bpt, way.granule)
         return search_words(o, d, words, plane, orig_idx, way.tile, way.granule)
-    first, last = culling.packet_block_ranges(o_p, d_p, a_p, accel)
+    first, last = _cull(o, d, alive, culling.packet_block_ranges, accel)
     return search_range(o, d, first, last, plane, orig_idx)

@@ -26,6 +26,7 @@ import torch
 from raytracingc_tpu_torch.ops import _build
 from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.scene.types import EPSILON, MISS_DST, Triangles
+from raytracingc_tpu_torch.utils.profiling import COUNTS
 
 
 def pack_rows(a, b, c, normal, n_live: int) -> torch.Tensor:
@@ -216,8 +217,11 @@ def search_brute(o, d, tri, n_live, alive=None):
     :func:`pack_triangles` for the pack-free entry). A CUDA tensor launches
     the kernel (building it on first use) and counts the launch in
     ``search_brute.launches``; any other device raises. Dead lanes report
-    ``(MISS_DST, -1)``.
+    ``(MISS_DST, -1)``. Either way the call adds its lanes times ``n_live``
+    to the ``search.pairs`` counter (``utils/profiling.py``), dead lanes
+    included.
     """
+    COUNTS["search.pairs"] += o.shape[0] * n_live
     if isinstance(tri, Triangles):
         return _search_tris(o, d, *(x.contiguous() for x in (
             tri.a, tri.b, tri.c, tri.normal)), n_live, alive)

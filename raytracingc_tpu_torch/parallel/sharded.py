@@ -58,6 +58,7 @@ from raytracingc_tpu_torch.parallel.mesh import (
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
 from raytracingc_tpu_torch.render.renderer import pad_rays, trace_rays
 from raytracingc_tpu_torch.scene.types import Scene, ShardSpec, Triangles, with_leaves
+from raytracingc_tpu_torch.utils.profiling import trace_annotation
 
 
 def strategy_spp_dim(strategy: str, n_devices: int) -> int:
@@ -407,6 +408,11 @@ def make_train_step(mesh: DeviceMesh | None, optimizer: torch.optim.Optimizer,
     the current triangles (the same bits). A geometry-trainable scene
     without that permutation trains without an accel; with
     ``geometry_trainable=False`` the accel stays frozen.
+
+    Spans: each call is one ``rtc.train.step`` holding ``rtc.train.forward``
+    (render and loss), ``rtc.train.backward``, ``rtc.train.update``
+    (gradients, their all-reduce, ``param_filter``, the optimizer) and an
+    ``rtc.train.refresh`` for each ``refresh_accel``.
     """
     if mesh is None:
         px, n_spp, p, s = 1, 1, 0, 0
@@ -421,6 +427,10 @@ def make_train_step(mesh: DeviceMesh | None, optimizer: torch.optim.Optimizer,
         return tuple(t._version for t in params.values())
 
     def step(scene: Scene, params: dict, origins, dirs, ray_ids, target):
+        with trace_annotation("rtc.train.step"):
+            return _step(scene, params, origins, dirs, ray_ids, target)
+
+    def _step(scene: Scene, params: dict, origins, dirs, ray_ids, target):
         accel = scene.accel
         refresh = (geometry_trainable and accel is not None
                    and accel.perm_of_orig is not None)
@@ -438,43 +448,46 @@ def make_train_step(mesh: DeviceMesh | None, optimizer: torch.optim.Optimizer,
         if is_fresh:
             loss_accel = accel
         elif refresh:
-            with torch.no_grad():
+            with torch.no_grad(), trace_annotation("rtc.train.refresh"):
                 loss_accel = refresh_accel(accel, current.triangles,
                                            scene.n_triangles)
-        radiance, _ = trace_accumulate(
-            o[block], d[block], dataclasses.replace(current, accel=loss_accel),
-            ids[block], seed=seed, spp=spp_per, max_bounce=max_bounce,
-            backend=backend, sample_offset=s * spp_per, active=active[block],
-        )
-        if mesh is not None:
-            radiance = _SppMean.apply(radiance, mesh)
-        loss = ((radiance[:n_real] - tgt) ** 2).sum() / (3 * n)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        # Every trained leaf gets a gradient, zero where the loss does not
-        # reach it (as jax.grad gives), so that the optimizer's state covers
-        # every trained leaf from the first step on and a checkpoint's
-        # structure never changes.
-        trained = [k for k, t in params.items() if t.requires_grad]
-        grads = {k: params[k].grad if params[k].grad is not None
-                 else torch.zeros_like(params[k]) for k in trained}
-        loss = loss.detach()
-        if mesh is not None:
-            flat = torch.cat([g.reshape(-1) for g in grads.values()]
-                             + [loss.reshape(1)])
-            dist.all_reduce(flat)
-            flat = flat / float(n_spp)
-            parts = flat.split([g.numel() for g in grads.values()] + [1])
-            grads = {k: v.reshape(grads[k].shape) for k, v in zip(grads, parts)}
-            loss = parts[-1][0]
-        if param_filter is not None:
-            grads = param_filter(grads)
-        for k in trained:
-            params[k].grad = grads[k]
-        optimizer.step()
+        with trace_annotation("rtc.train.forward"):
+            radiance, _ = trace_accumulate(
+                o[block], d[block], dataclasses.replace(current, accel=loss_accel),
+                ids[block], seed=seed, spp=spp_per, max_bounce=max_bounce,
+                backend=backend, sample_offset=s * spp_per, active=active[block],
+            )
+            if mesh is not None:
+                radiance = _SppMean.apply(radiance, mesh)
+            loss = ((radiance[:n_real] - tgt) ** 2).sum() / (3 * n)
+        with trace_annotation("rtc.train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with trace_annotation("rtc.train.update"):
+            # Every trained leaf gets a gradient, zero where the loss does not
+            # reach it (as jax.grad gives), so that the optimizer's state covers
+            # every trained leaf from the first step on and a checkpoint's
+            # structure never changes.
+            trained = [k for k, t in params.items() if t.requires_grad]
+            grads = {k: params[k].grad if params[k].grad is not None
+                     else torch.zeros_like(params[k]) for k in trained}
+            loss = loss.detach()
+            if mesh is not None:
+                flat = torch.cat([g.reshape(-1) for g in grads.values()]
+                                 + [loss.reshape(1)])
+                dist.all_reduce(flat)
+                flat = flat / float(n_spp)
+                parts = flat.split([g.numel() for g in grads.values()] + [1])
+                grads = {k: v.reshape(grads[k].shape) for k, v in zip(grads, parts)}
+                loss = parts[-1][0]
+            if param_filter is not None:
+                grads = param_filter(grads)
+            for k in trained:
+                params[k].grad = grads[k]
+            optimizer.step()
         updated = with_leaves(scene, {k: t.detach() for k, t in params.items()})
         if refresh:
-            with torch.no_grad():
+            with torch.no_grad(), trace_annotation("rtc.train.refresh"):
                 loss_accel = refresh_accel(accel, updated.triangles,
                                            scene.n_triangles)
             fresh.update(accel=loss_accel, versions=versions(params))

@@ -29,6 +29,14 @@ element's values are its own call's bit for bit.
 Traced rays are counted as Python integers (exact at any size; the JAX
 package sums them in float32).
 
+Spans (``utils/profiling.trace_annotation``): ``rtc.primary`` holds the
+primary search and resolve, ``rtc.bounce`` each loop iteration that
+searches, ``rtc.compact`` the live-lane selection (a host sync) with its
+gathers and write-backs, ``rtc.shade`` the bounce body and the hit-front
+continuation's bounce-0 radiance, streams, scatter and roulette. Counters:
+``integrator.bounces`` one per search made, ``integrator.lanes`` what is
+added to the returned count.
+
 :func:`render_debug` is the reference's ``calcDebugColor``: the same walk
 without Russian roulette, shading each pixel by its bounce count.
 """
@@ -50,6 +58,7 @@ from raytracingc_tpu_torch.ops.intersect import (
 )
 from raytracingc_tpu_torch.ops.no_tangent import lane_count, live_lanes
 from raytracingc_tpu_torch.scene.types import Scene, scene_leaves
+from raytracingc_tpu_torch.utils.profiling import COUNTS, tally, trace_annotation
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -68,35 +77,36 @@ def _step(pos, d, thr, light, state, hit: Hit, alive, scene: Scene):
     """One bounce on the given hit: scatter, emission, roulette and miss.
     ``alive`` is a bool ``[R]`` mask, or None when every lane is alive.
     Returns the next ``(pos, d, thr, light, state, alive)``."""
-    state, unit = rng.next_unit_vector(state)
-    diffuse = _normalize(hit.normal + unit)
-    specular = _reflect(d, hit.normal)
-    smooth = hit.smoothness[:, None]
-    new_dir = (1.0 - smooth) * diffuse + smooth * specular
+    with trace_annotation("rtc.shade"):
+        state, unit = rng.next_unit_vector(state)
+        diffuse = _normalize(hit.normal + unit)
+        specular = _reflect(d, hit.normal)
+        smooth = hit.smoothness[:, None]
+        new_dir = (1.0 - smooth) * diffuse + smooth * specular
 
-    # Emission weighted by the PRE-update throughput, then albedo.
-    live_hit = hit.hit if alive is None else alive & hit.hit
-    live_miss = ~live_hit if alive is None else alive & ~hit.hit
-    hm = live_hit[:, None]
-    emitted = hit.albedo * hit.emission[:, None]
-    light = light + torch.where(hm, emitted * thr, 0.0)
-    new_thr = thr * hit.albedo
+        # Emission weighted by the PRE-update throughput, then albedo.
+        live_hit = hit.hit if alive is None else alive & hit.hit
+        live_miss = ~live_hit if alive is None else alive & ~hit.hit
+        hm = live_hit[:, None]
+        emitted = hit.albedo * hit.emission[:, None]
+        light = light + torch.where(hm, emitted * thr, 0.0)
+        new_thr = thr * hit.albedo
 
-    # Russian roulette: survive iff p >= u. amax shares its gradient evenly
-    # between tied channels, as jnp.max does.
-    state, u_rr = rng.next_uniform(state)
-    p = new_thr.amax(dim=-1)
-    survive = p >= u_rr
-    new_thr = new_thr / torch.where(p > 0.0, p, 1.0)[:, None]
+        # Russian roulette: survive iff p >= u. amax shares its gradient evenly
+        # between tied channels, as jnp.max does.
+        state, u_rr = rng.next_uniform(state)
+        p = new_thr.amax(dim=-1)
+        survive = p >= u_rr
+        new_thr = new_thr / torch.where(p > 0.0, p, 1.0)[:, None]
 
-    # Miss: add the environment light and end the path.
-    env = environment_light(d, scene.env)
-    light = light + torch.where(live_miss[:, None], env * thr, 0.0)
+        # Miss: add the environment light and end the path.
+        env = environment_light(d, scene.env)
+        light = light + torch.where(live_miss[:, None], env * thr, 0.0)
 
-    thr = torch.where(hm, new_thr, thr)
-    pos = torch.where(hm, hit.point, pos)
-    d = torch.where(hm, new_dir, d)
-    return pos, d, thr, light, state, live_hit & survive
+        thr = torch.where(hm, new_thr, thr)
+        pos = torch.where(hm, hit.point, pos)
+        d = torch.where(hm, new_dir, d)
+        return pos, d, thr, light, state, live_hit & survive
 
 
 def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
@@ -126,32 +136,38 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
     if first_hit is not None and max_bounce >= 1:
         alive = (torch.ones((r,), dtype=torch.bool, device=dev)
                  if active is None else active)
-        count = lane_count(alive)
+        count = tally("integrator.lanes", lane_count(alive))
         pos, d, thr, light_full, state, active = _step(
             pos, d, thr, light_full, state, first_hit, alive, scene)
         max_bounce -= 1
 
-    lanes, union = ((torch.arange(r, device=dev), False) if active is None
-                    else live_lanes(active))
-    alive = active[lanes] if union else None
-    pos, d, thr, state, light = (x[lanes] for x in (pos, d, thr, state, light_full))
+    with trace_annotation("rtc.compact"):
+        lanes, union = ((torch.arange(r, device=dev), False) if active is None
+                        else live_lanes(active))
+        alive = active[lanes] if union else None
+        pos, d, thr, state, light = (x[lanes] for x in (pos, d, thr, state, light_full))
     for _ in range(max_bounce):
         n = lanes.numel()
         if n == 0:
             break
-        count += n if alive is None else alive.sum()
-        hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend), scene)
-        pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
-                                                 alive, scene)
-        keep, union = live_lanes(alive)
-        if keep.numel() < n:
-            light_full = light_full.index_copy(0, lanes, light)
-            lanes, pos, d, thr, state, light, alive = (
-                x[keep] for x in (lanes, pos, d, thr, state, light, alive)
-            )
-        if not union:
-            alive = None
-    return light_full.index_copy(0, lanes, light), count
+        with trace_annotation("rtc.bounce"):
+            COUNTS["integrator.bounces"] += 1
+            count += tally("integrator.lanes", n if alive is None else alive.sum())
+            hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend),
+                              scene)
+            pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
+                                                     alive, scene)
+            with trace_annotation("rtc.compact"):
+                keep, union = live_lanes(alive)
+                if keep.numel() < n:
+                    light_full = light_full.index_copy(0, lanes, light)
+                    lanes, pos, d, thr, state, light, alive = (
+                        x[keep] for x in (lanes, pos, d, thr, state, light, alive)
+                    )
+            if not union:
+                alive = None
+    with trace_annotation("rtc.compact"):
+        return light_full.index_copy(0, lanes, light), count
 
 
 def _trace_masked(origins, dirs, rng_state, scene: Scene, max_bounce: int,
@@ -162,16 +178,18 @@ def _trace_masked(origins, dirs, rng_state, scene: Scene, max_bounce: int,
     uses the precomputed primary hit ``first_hit``. Returns ``(radiance
     [R, 3], rays_traced)``."""
     r = origins.shape[0]
-    pos, d = origins, dirs
     thr = torch.ones((r, 3), dtype=torch.float32, device=origins.device)
-    light = torch.zeros_like(thr)
-    alive, state, count = active, rng_state, 0
-    for bounce in range(max_bounce):
-        count += lane_count(alive)
-        hit = first_hit if bounce == 0 else resolve_hit(
-            pos, d, nearest_hit(pos, d, scene, backend=backend, alive=alive), scene)
-        pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
-                                                 alive, scene)
+    count = tally("integrator.lanes", lane_count(active))
+    pos, d, thr, light, state, alive = _step(origins, dirs, thr, torch.zeros_like(thr),
+                                             rng_state, first_hit, active, scene)
+    for _ in range(max_bounce - 1):
+        with trace_annotation("rtc.bounce"):
+            COUNTS["integrator.bounces"] += 1
+            count += tally("integrator.lanes", lane_count(alive))
+            hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend,
+                                                  alive=alive), scene)
+            pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
+                                                     alive, scene)
     return light, count
 
 
@@ -251,10 +269,12 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
     act = (torch.ones((r,), dtype=torch.bool, device=origins.device)
            if active is None else active)
     # Primary hits are the same for every sample: search and resolve once.
-    hit0 = resolve_hit(
-        origins, dirs, nearest_hit(origins, dirs, scene, backend=backend, alive=act),
-        scene,
-    )
+    with trace_annotation("rtc.primary"):
+        COUNTS["integrator.bounces"] += 1
+        hit0 = resolve_hit(
+            origins, dirs,
+            nearest_hit(origins, dirs, scene, backend=backend, alive=act), scene,
+        )
     if sample_batch > 1:
         return _batch_accumulate(origins, dirs, scene, ray_ids, seed,
                                  sample_offset, spp, max_bounce, backend, act,
@@ -323,20 +343,22 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
     """
     r = origins.shape[0]
     hitm = hit0.hit & act
-    emitted = hit0.albedo * hit0.emission[:, None]
-    env = environment_light(dirs, scene.env)
-    light0 = (torch.where(hitm[:, None], emitted, 0.0)
-              + torch.where((act & ~hit0.hit)[:, None], env, 0.0))
-    count = lane_count(act) * spp
+    with trace_annotation("rtc.shade"):
+        emitted = hit0.albedo * hit0.emission[:, None]
+        env = environment_light(dirs, scene.env)
+        light0 = (torch.where(hitm[:, None], emitted, 0.0)
+                  + torch.where((act & ~hit0.hit)[:, None], env, 0.0))
+    count = tally("integrator.lanes", lane_count(act) * spp)
 
-    sel, union = live_lanes(hitm)
-    width = sel.numel()
-    point, normal, albedo = hit0.point[sel], hit0.normal[sel], hit0.albedo[sel]
-    smooth = hit0.smoothness[sel][:, None]
-    ids = ray_ids[sel]
-    # Under vmap, the primary-hit lanes of any element: a slot that missed
-    # in this element stays dead.
-    hit_sel = hitm[sel] if union else None
+    with trace_annotation("rtc.compact"):
+        sel, union = live_lanes(hitm)
+        width = sel.numel()
+        point, normal, albedo = hit0.point[sel], hit0.normal[sel], hit0.albedo[sel]
+        smooth = hit0.smoothness[sel][:, None]
+        ids = ray_ids[sel]
+        # Under vmap, the primary-hit lanes of any element: a slot that missed
+        # in this element stays dead.
+        hit_sel = hitm[sel] if union else None
     # Post-bounce-0 throughput is deterministic: albedo / p with
     # p = max(albedo) (the roulette renorm); only survival is random.
     p = albedo.amax(dim=-1)
@@ -353,15 +375,16 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
         lane_sample = torch.arange(group, device=origins.device).repeat_interleave(
             width)
         for s in range(0, spp, group):
-            sid = offset + s if group == 1 else lane_sample + (offset + s)
-            state = rng.stream_init(seed, ids, sid)
-            # Same draw order as a full bounce: 6 for the unit vector, 1 for
-            # roulette.
-            state, unit = rng.next_unit_vector(state)
-            diffuse = _normalize(normal + unit)
-            new_dir = (1.0 - smooth) * diffuse + smooth * spec
-            state, u_rr = rng.next_uniform(state)
-            survive = p >= u_rr
+            with trace_annotation("rtc.shade"):
+                sid = offset + s if group == 1 else lane_sample + (offset + s)
+                state = rng.stream_init(seed, ids, sid)
+                # Same draw order as a full bounce: 6 for the unit vector, 1
+                # for roulette.
+                state, unit = rng.next_unit_vector(state)
+                diffuse = _normalize(normal + unit)
+                new_dir = (1.0 - smooth) * diffuse + smooth * spec
+                state, u_rr = rng.next_uniform(state)
+                survive = p >= u_rr
             light_s, cnt = trace_paths(
                 point, new_dir, state, scene, max_bounce - 1, backend=backend,
                 active=survive if hit_sel is None else survive & hit_sel,
@@ -371,8 +394,9 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
                 acc = acc + light_s[k * width:(k + 1) * width]
             count += cnt
 
-    contrib = torch.zeros((r, 3), dtype=torch.float32,
-                          device=origins.device).index_copy(0, sel, acc)
+    with trace_annotation("rtc.compact"):
+        contrib = torch.zeros((r, 3), dtype=torch.float32,
+                              device=origins.device).index_copy(0, sel, acc)
     return (light0 * float(spp) + contrib) / float(spp), count
 
 
@@ -394,21 +418,25 @@ def trace_debug_bounces(origins, dirs, rng_state, scene: Scene, max_bounce: int,
     n_bounce = torch.zeros((r,), dtype=torch.float32, device=origins.device)
     alive = torch.ones((r,), dtype=torch.bool, device=origins.device)
     for _ in range(max_bounce):
-        if live_lanes(alive)[0].numel() == 0:  # dead in every vmap element
-            break
-        hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend,
-                                              alive=alive), scene)
-        state, unit = rng.next_unit_vector(state)
-        diffuse = _normalize(hit.normal + unit)
-        specular = _reflect(d, hit.normal)
-        smooth = hit.smoothness[:, None]
-        new_dir = (1.0 - smooth) * diffuse + smooth * specular
+        with trace_annotation("rtc.compact"):
+            if live_lanes(alive)[0].numel() == 0:  # dead in every vmap element
+                break
+        with trace_annotation("rtc.bounce"):
+            COUNTS["integrator.bounces"] += 1
+            hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend,
+                                                  alive=alive), scene)
+            with trace_annotation("rtc.shade"):
+                state, unit = rng.next_unit_vector(state)
+                diffuse = _normalize(hit.normal + unit)
+                specular = _reflect(d, hit.normal)
+                smooth = hit.smoothness[:, None]
+                new_dir = (1.0 - smooth) * diffuse + smooth * specular
 
-        live_hit = alive & hit.hit
-        n_bounce = n_bounce + live_hit.to(torch.float32)
-        pos = torch.where(live_hit[:, None], hit.point, pos)
-        d = torch.where(live_hit[:, None], new_dir, d)
-        alive = live_hit
+                live_hit = alive & hit.hit
+                n_bounce = n_bounce + live_hit.to(torch.float32)
+                pos = torch.where(live_hit[:, None], hit.point, pos)
+                d = torch.where(live_hit[:, None], new_dir, d)
+                alive = live_hit
     shade = torch.clamp(n_bounce / float(max(max_bounce, 1)), 0.0, 1.0)
     return shade[:, None].expand(r, 3)
 

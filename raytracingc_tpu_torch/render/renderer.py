@@ -6,10 +6,14 @@ dead rays, and traced chunk by chunk through the integrator (by default its
 production mode) so that device memory stays bounded at any resolution;
 :func:`trace_rays` is that chunk loop on any rays (a sharded render's
 shard). :func:`render_image`: the same, tonemapped to bytes and optionally
-written.
+written. Each call of :func:`render` or :func:`trace_rays` is one
+``rtc.render`` span (``call``: its number in the process) holding an
+``rtc.chunk`` span for each chunk.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -18,6 +22,10 @@ from raytracingc_tpu_torch.camera import Camera, primary_rays
 from raytracingc_tpu_torch.render.image import tonemap_to_bytes, write_image
 from raytracingc_tpu_torch.render.integrator import trace_accumulate
 from raytracingc_tpu_torch.scene.types import Scene
+from raytracingc_tpu_torch.utils.profiling import trace_annotation
+
+# Numbers the process's render calls (the rtc.render span's ``call``).
+_calls = itertools.count()
 
 
 def _round_up(n: int, m: int) -> int:
@@ -57,6 +65,16 @@ def trace_rays(scene: Scene, origins, dirs, ray_ids, spp: int, max_bounce: int,
     ``pixel_chunk`` (default :func:`default_pixel_chunk` of ``R``) with dead
     rays; lanes with ``active=False`` stay dead too. A lane's radiance does
     not depend on the chunking; the keywords are :func:`render`'s."""
+    with trace_annotation("rtc.render", call=next(_calls)):
+        return _trace_chunks(scene, origins, dirs, ray_ids, spp, max_bounce,
+                             active, seed, backend, pixel_chunk, early_exit,
+                             sample_offset, compact, sample_batch, sample_group)
+
+
+def _trace_chunks(scene, origins, dirs, ray_ids, spp, max_bounce, active, seed,
+                  backend, pixel_chunk, early_exit, sample_offset, compact,
+                  sample_batch, sample_group):
+    """:func:`trace_rays`' chunk loop, inside the caller's span."""
     n = origins.shape[0]
     if pixel_chunk is None:
         pixel_chunk = default_pixel_chunk(n)
@@ -69,13 +87,14 @@ def trace_rays(scene: Scene, origins, dirs, ray_ids, spp: int, max_bounce: int,
     radiance, count = [], 0
     for lo in range(0, origins.shape[0], pixel_chunk):
         hi = lo + pixel_chunk
-        rad, cnt = trace_accumulate(
-            origins[lo:hi], dirs[lo:hi], scene, ray_ids[lo:hi], seed=seed,
-            spp=spp, max_bounce=max_bounce, backend=backend,
-            sample_offset=sample_offset, active=live[lo:hi],
-            early_exit=early_exit, sample_batch=sample_batch, compact=compact,
-            sample_group=sample_group,
-        )
+        with trace_annotation("rtc.chunk"):
+            rad, cnt = trace_accumulate(
+                origins[lo:hi], dirs[lo:hi], scene, ray_ids[lo:hi], seed=seed,
+                spp=spp, max_bounce=max_bounce, backend=backend,
+                sample_offset=sample_offset, active=live[lo:hi],
+                early_exit=early_exit, sample_batch=sample_batch, compact=compact,
+                sample_group=sample_group,
+            )
         radiance.append(rad)
         count += cnt
     return torch.cat(radiance)[:n], count
@@ -97,17 +116,16 @@ def render(scene: Scene, camera: Camera, width: int, height: int, spp: int,
     the default is the forward-only production mode; pass
     ``early_exit=False`` when differentiating.
     """
-    device = torch.device(device) if device is not None else scene.device
-    scene, camera = scene.to(device), camera.to(device)
-    origins, dirs = primary_rays(camera, width, height)
-    ray_ids = torch.arange(width * height, dtype=torch.int64, device=device)
-    radiance, count = trace_rays(
-        scene, origins, dirs, ray_ids, spp, max_bounce, seed=seed,
-        backend=backend, pixel_chunk=pixel_chunk, early_exit=early_exit,
-        sample_offset=sample_offset, compact=compact, sample_batch=sample_batch,
-        sample_group=sample_group,
-    )
-    return radiance.reshape(height, width, 3), count
+    with trace_annotation("rtc.render", call=next(_calls)):
+        device = torch.device(device) if device is not None else scene.device
+        scene, camera = scene.to(device), camera.to(device)
+        origins, dirs = primary_rays(camera, width, height)
+        ray_ids = torch.arange(width * height, dtype=torch.int64, device=device)
+        radiance, count = _trace_chunks(
+            scene, origins, dirs, ray_ids, spp, max_bounce, None, seed, backend,
+            pixel_chunk, early_exit, sample_offset, compact, sample_batch,
+            sample_group)
+        return radiance.reshape(height, width, 3), count
 
 
 def render_image(scene: Scene, camera: Camera, width: int, height: int,

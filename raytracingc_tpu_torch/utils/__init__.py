@@ -1,8 +1,8 @@
 """Cross-cutting utilities: checkpointing, profiling, failure supervision.
 
 Counterpart of ``raytracingc_tpu/utils``: long renders and optimization runs
-checkpoint and resume (:mod:`checkpoint`), name and trace their phases
-(:mod:`profiling`), and survive transient device failures
+checkpoint and resume (:mod:`checkpoint`), trace their layers' spans and
+count their work (:mod:`profiling`), and survive transient device failures
 (:mod:`resilient`).
 """
 
@@ -11,7 +11,7 @@ from raytracingc_tpu_torch.utils.checkpoint import (  # noqa: F401
     save_pytree,
 )
 from raytracingc_tpu_torch.utils.profiling import (  # noqa: F401
-    Profiler,
+    counters,
     start_trace,
     stop_trace,
     trace_annotation,

@@ -1,11 +1,19 @@
-"""Profiling and observability hooks.
+"""Profiling and observability hooks: spans, counters and traces.
 
 Counterpart of ``raytracingc_tpu/utils/profiling.py``:
 
-* :class:`Profiler`: wall-clock phase timers plus traced-ray accounting,
-  printed as one line (the JAX package's text).
-* :func:`trace_annotation`: names a region in a profile
-  (``torch.profiler.record_function``).
+* :func:`trace_annotation`: a span, the named region of one layer of the
+  program in a running ``torch.profiler`` (spans are named ``rtc.<layer>``).
+  With no profiler running it returns one shared no-op context manager and
+  records nothing; under a profiler the span is a function-scope
+  ``RecordFunction``, an event in the profiler's own stream and clock beside
+  the kernels it launches. Unlike a user-scope ``record_function`` it has no
+  device-side copy (``gpu_user_annotation``), so a profile's device
+  activity holds the kernels, copies and fills alone.
+* :data:`COUNTS` and :func:`tally`: counters of the integrator's and the
+  search's work, always on, filled by plain integer adds from values the
+  host already holds (no device sync). :func:`counters` snapshots them with
+  each search wrapper's launch counter.
 * :func:`start_trace` / :func:`stop_trace`: a ``torch.profiler.profile``
   over the CPU and, where a card is present, CUDA activities, for a window
   of work; :func:`stop_trace` writes a Chrome trace (``chrome://tracing``,
@@ -18,45 +26,57 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from dataclasses import dataclass, field
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+_NO_SPAN = contextlib.nullcontext()
+
+# Counters of work: one per search the integrator makes (primary calls and
+# loop iterations), the lanes it adds to the traced-ray count it returns
+# (where that amount is a Python int), and the ray-triangle pairs handed to
+# the brute-force search (every lane given to it, times the live triangles).
+COUNTS = dict.fromkeys(("integrator.bounces", "integrator.lanes", "search.pairs"), 0)
 
 
-@dataclass
-class Profiler:
-    """Accumulating phase timers: ``with prof.phase("trace"): ...``."""
-
-    totals: dict[str, float] = field(default_factory=dict)
-    counts: dict[str, int] = field(default_factory=dict)
-    rays: float = 0.0
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def add_rays(self, n: float) -> None:
-        self.rays += float(n)
-
-    def summary(self) -> str:
-        parts = [
-            f"{k}={v:.3f}s/{self.counts[k]}x" for k, v in sorted(self.totals.items())
-        ]
-        total = sum(self.totals.values())
-        if self.rays and total > 0:
-            parts.append(f"rays/s={self.rays / total:.3g}")
-        return " ".join(parts) or "(no phases recorded)"
+def trace_annotation(name: str, **args):
+    """Span of one layer (``with trace_annotation("rtc.bounce"): ...``).
+    ``args`` (ints, strings) are kept with the span where the profiler
+    records inputs (``record_shapes=True``)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name, (), args) if args else _RecordFunctionFast(name)
 
 
-def trace_annotation(name: str):
-    """Named region in profiles (``with trace_annotation("bounce"): ...``)."""
-    return torch.profiler.record_function(name)
+def tally(name: str, n):
+    """Add ``n`` to counter ``name`` and return it; a tensor (a count per
+    element under ``torch.func.vmap``) adds nothing."""
+    if type(n) is int:
+        COUNTS[name] += n
+    return n
+
+
+def counters() -> dict:
+    """A snapshot of every counter of the program: :data:`COUNTS` and each
+    search wrapper's ``.launches`` as ``launches.<wrapper>``."""
+    from raytracingc_tpu_torch.ops import (
+        intersect_mxu,
+        search_bitmask,
+        search_brute,
+        search_packed,
+        search_range,
+        search_union,
+        search_words,
+    )
+
+    out = dict(COUNTS)
+    for fn in (search_brute.search_brute, search_bitmask.search_bitmask,
+               search_packed.search_packed, search_words.search_words,
+               search_range.search_range, search_union.search_union,
+               intersect_mxu.search_mxu):
+        out[f"launches.{fn.__name__}"] = fn.launches
+    return out
 
 
 # The running trace, (profiler, log_dir); start_trace / stop_trace pair up

@@ -1,4 +1,4 @@
-"""Port parity: checkpoints, progressive rendering, profiling, supervision.
+"""Port parity: checkpoints, progressive rendering, traces, supervision.
 
 The progressive renderer is held against the JAX package's on
 ``__graft_entry__._demo_scene`` at 8x8 (test_torch_render.py's rule: rtol
@@ -22,13 +22,11 @@ from raytracingc_tpu.camera import Camera as JCamera
 from raytracingc_tpu.render.progressive import render_progressive as j_progressive
 from raytracingc_tpu.utils.checkpoint import load_pytree as j_load_pytree
 from raytracingc_tpu.utils.checkpoint import save_pytree as j_save_pytree
-from raytracingc_tpu.utils.profiling import Profiler as JProfiler
 from raytracingc_tpu_torch import bridge
 from raytracingc_tpu_torch.render.progressive import render_progressive
 from raytracingc_tpu_torch.render.renderer import render
 from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
 from raytracingc_tpu_torch.utils import (
-    Profiler,
     RenderFailure,
     load_pytree,
     render_resilient,
@@ -248,19 +246,6 @@ def test_progressive_multi_device_raises(demo, kw):
                   else (ValueError, "unknown strategy"))
     with pytest.raises(exc, match=match):
         _progressive(demo, **kw)
-
-
-def test_profiler_summary_matches_jax():
-    port, ref = Profiler(), JProfiler()
-    for prof in (port, ref):
-        with prof.phase("trace"):
-            pass
-        prof.totals = {"trace": 0.25, "load": 0.5}
-        prof.counts = {"trace": 2, "load": 1}
-        prof.add_rays(1500)
-    assert port.summary() == ref.summary() == \
-        "load=0.500s/1x trace=0.250s/2x rays/s=2e+03"
-    assert Profiler().summary() == "(no phases recorded)"
 
 
 def test_render_resilient_retries_and_refuses():
