@@ -4,7 +4,9 @@
 
 Builds the hand-written CUDA kernels from this checkout's sources (one nvcc
 per source, in parallel), holds each against its plain PyTorch version on
-the card (bit for bit; the tensor-core MXU kernel within its contract),
+the card (bit for bit; the tensor-core MXU kernel within its contract; the
+shading kernel's four entries also through a whole 1080p frame on each of
+its two routes),
 drives the renderer's main path through the CLI (the user's entry point) at
 every kernel's scene size and under every search knob that picks a kernel,
 then its progressive (checkpointed, resumed), bounce-heatmap, trace and
@@ -216,7 +218,8 @@ UNION_TIMED = "box 10,240 (--tessellate 5)"  # the union tool's scene
 # smoke otherwise): K1 (every instantiation), the item searches, K8's and
 # the words kernel K9 runs.
 NO_SPILLS = ("search_brute_kernel", "search_range_kernel", "search_words_kernel",
-             "search_mxu_kernel", "mxu_pack_kernel", "mxu_items_kernel")
+             "search_mxu_kernel", "mxu_pack_kernel", "mxu_items_kernel",
+             "shade_kernel")
 # The K1 instantiation whose MT loop tools/sass_loop.py counts: 8 lanes a
 # ray over a staged table (TIMED_RAYS rays at 640 triangles).
 SASS_KERNEL = "search_brute_kernelILi8ELb0E"
@@ -374,6 +377,18 @@ OBJTEST_MTL = "newmtl glow\nKd 0.9 0.8 0.7\nKe 5 1 1\nnewmtl shiny\nKd 0.1 0.2 0
 # as tests/test_torch_render.py: CPU and CUDA libm differ by ulps in log/cos
 # (Box-Muller), which can send a ray near an edge down another path.
 SMALL = dict(width=32, height=32, spp=4, max_bounce=4)
+# Phase 3f: the shading kernel's entries against their plain versions, bit
+# for bit, at these lanes (the share DEAD dead, and all alive); the
+# Morton-permuted scene at SHADE_PERM_LANES; timed at a loop's width.
+SHADE_LANES = (1, 33, 16384, 65536)
+SHADE_PERM_LANES = (16384,)
+SHADE_TIMED = 20000
+SHADE_HOST_CALLS = 2000  # calls a host timing of the route and the tables
+SHADE_FRAME = dict(width=1920, height=1080, spp=2, max_bounce=8)
+# Bytes a lane of the bounce entry moves: pos, d, thr, light (4 x 12), the
+# state (8) and the winner (hit 1, is_tri 1, idx 4) in; pos, d, thr, light,
+# state and alive (1) out.
+SHADE_LANE_BYTES = 4 * 12 + 8 + 6 + 4 * 12 + 8 + 1
 PIXEL_RTOL = PIXEL_ATOL = 1e-4
 MIN_CLOSE_FRAC = 0.995
 MAX_MEAN_ABS = 1e-3
@@ -537,22 +552,39 @@ def phase(name: str, t0: float, msg: str) -> None:
     print(f"[{name}] {time.time() - t0:.3f}s {msg}", flush=True)
 
 
-def counted(kernels: dict, totals: dict, expect: str, label: str, fn):
+def check_launches(label: str, launched: dict, expect, shade: bool) -> None:
+    """Raise unless every kernel of ``expect`` (a name or a tuple) launched,
+    the shading kernel launched (``shade``: a render with no derivative on
+    the card) or did not (a gradient, a tangent, a vmap or the heatmap's
+    walk: the torch route), and no other kernel did."""
+    expect = (expect,) if isinstance(expect, str) else expect
+    for k in expect:
+        if launched[k] < 1:
+            raise AssertionError(f"{label}: {k} never launched: {launched}")
+    if shade != (launched["shade_kernel"] > 0):
+        raise AssertionError(f"{label}: shade_kernel launched "
+                             f"{launched['shade_kernel']} times (expected "
+                             f"{'some' if shade else 'none'})")
+    others = {k: v for k, v in launched.items()
+              if k not in expect and k != "shade_kernel" and v}
+    if others:
+        raise AssertionError(f"{label}: other kernels launched: {others}")
+
+
+def counted(kernels: dict, totals: dict, expect: str, label: str, fn,
+            shade: bool = True):
     """Run ``fn()`` with every kernel's launch count set to 0 just before it
     and read just after; add the counts to ``totals``. Raises unless
-    ``expect`` launched and no other kernel did. Returns ``(fn's result,
-    launches of expect)``."""
+    ``expect`` launched, the shading kernel launched or not as ``shade``
+    says, and no other kernel did (:func:`check_launches`). Returns
+    ``(fn's result, launches of expect)``."""
     for k in kernels.values():
         k.launches = 0
     out = fn()
     launched = {k: f.launches for k, f in kernels.items()}
     for k, v in launched.items():
         totals[k] += v
-    if launched[expect] < 1:
-        raise AssertionError(f"{label}: {expect} never launched")
-    others = {k: v for k, v in launched.items() if k != expect and v}
-    if others:
-        raise AssertionError(f"{label}: other kernels launched: {others}")
+    check_launches(label, launched, expect, shade)
     return out, launched[expect]
 
 
@@ -701,7 +733,7 @@ def check_debug(dev, tmp, cli_main, count) -> dict:
 
     bmp = os.path.join(tmp, "s.bmp")
     (_, wall, rays), n = count("search_bitmask", "s", lambda: run_cli(
-        cli_main, "s", [*DEBUG_FLAGS, "--debug-bounces", "-o", bmp]))
+        cli_main, "s", [*DEBUG_FLAGS, "--debug-bounces", "-o", bmp]), shade=False)
     img = read_bmp(bmp)
     b = DEBUG["max_bounce"]
     levels = set(tonemap_to_bytes(np.arange(b + 1, dtype=np.float32) / b).tolist())
@@ -715,7 +747,7 @@ def check_debug(dev, tmp, cli_main, count) -> dict:
     cam = Camera.look_at(device=dev)
     t = time.time()
     heat, _ = count("search_bitmask", "s api", lambda: render_debug(
-        scene, cam, **DEBUG))
+        scene, cam, **DEBUG), shade=False)
     torch.cuda.synchronize(dev)
     t_api = time.time() - t
     if not (torch.equal(heat * b, torch.round(heat * b))
@@ -724,7 +756,7 @@ def check_debug(dev, tmp, cli_main, count) -> dict:
     if not np.array_equal(tonemap_to_bytes(heat.cpu().numpy()), img):
         raise AssertionError("s: the API's heatmap does not tonemap to the CLI's bytes")
     small, _ = count("search_bitmask", "s small", lambda: render_debug(
-        scene, cam, **DEBUG_SMALL))
+        scene, cam, **DEBUG_SMALL), shade=False)
     small_cpu = render_debug(scene.to("cpu"), cam.to("cpu"), **DEBUG_SMALL)
     same = float((small.cpu() == small_cpu).all(-1).float().mean())
     if same < MIN_CLOSE_FRAC:
@@ -1621,6 +1653,170 @@ def check_smem_probe(dev):
     return limit, ms, work, 4 * sp.staging_split(n)[0] * tiles, ladder
 
 
+def shade_inputs(np_rng, n: int, dev):
+    """Lanes for the shading kernel: rays from inside box_scene's room (hits
+    on the walls, the emitter and the sphere; misses through its open front
+    and top, to the sky, the sun and the ground) and from outside it,
+    positive throughputs and lights, RNG states in [0, 2**32), and a mask
+    with the share DEAD of tools/packets.py dead."""
+    import numpy as np
+    import torch
+
+    from raytracingc_tpu_torch.tools.packets import DEAD
+
+    inside = np_rng.uniform([-5, -5, -5], [5, 1.5, 5], (n // 2, 3))
+    outside = np_rng.uniform([-30, -30, -30], [30, 30, -10], (n - n // 2, 3))
+    d = np_rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    return dict(
+        pos=f32(np.concatenate([inside, outside])), d=f32(d),
+        thr=f32(np_rng.uniform(0.05, 2.0, (n, 3))),
+        light=f32(np_rng.uniform(0.0, 3.0, (n, 3))),
+        state=torch.from_numpy(np_rng.integers(0, 2**32, n, dtype=np.int64)).to(dev),
+        alive=torch.from_numpy(np_rng.random(n) >= DEAD).to(dev))
+
+
+def check_shade_kernel(dev, np_rng, run=SHADE_FRAME):
+    """Phase 3f: the shading kernel's four entries against their plain
+    versions on the card, bit for bit (ops/shade.py; SHADE_LANES lanes,
+    the share DEAD dead and all alive, box_scene with and without its sphere, and its
+    64-fold tessellation through the Morton-permuted resolve table), then a
+    1080p frame of box_scene (2 spp, 8 bounces) through the kernel route
+    against the same frame through the torch route (early_exit=False with
+    the albedo requiring grad): values and ray count equal, each frame on
+    its route alone. Returns ``{"cases", "frame", "timed", "report"}``:
+    ``timed`` the bounce entry at SHADE_TIMED lanes (tools.split_times:
+    events, host a call, the profiler's device time; the plain version's
+    events; the bytes bound)."""
+    import dataclasses
+    import timeit
+
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.ops import _build, shade
+    from raytracingc_tpu_torch.ops.intersect import nearest_hit, resolve_hit, with_perm_resolve
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.scene import builder as tb
+    from raytracingc_tpu_torch.scene.types import with_leaves
+    from raytracingc_tpu_torch.tools import cuda_ms, knobs_set, split_times
+    from raytracingc_tpu_torch.utils.profiling import COUNTS
+
+    box = tb.scene_from_triangles_txt(BOX_SCENE).to(dev)
+    bare = tb.scene_from_triangles_txt(BOX_SCENE, include_default_spheres=False).to(dev)
+    tt, n_live = tb.tessellate(box.triangles, box.n_triangles, levels=3)
+    x3 = dataclasses.replace(box, triangles=tt, n_triangles=n_live,
+                             accel=None).with_accel()
+    with knobs_set({"RTC_RESOLVE": "perm"}):
+        perm = with_perm_resolve(x3)
+    scenes = {"sphere": box, "no sphere": bare, "perm": perm}
+    if perm.resolve_perm is None:
+        raise AssertionError("shade: no Morton-permuted resolve table attached")
+    for name, sc in scenes.items():  # no table is copied on a launch
+        if shade._scene_args(sc, dev)[2]:
+            raise AssertionError(f"shade {name}: a scene table is not contiguous")
+        if not shade.kernel_route(sc, sc.triangles.a):
+            raise AssertionError(f"shade {name}: not on the kernel route")
+
+    def same(label, got, want):
+        for k, (a, b) in enumerate(zip(got, want)):
+            a = a.view(torch.int32) if a.is_floating_point() else a
+            b = b.view(torch.int32) if b.is_floating_point() else b
+            if not torch.equal(a, b):
+                diff = (a != b).reshape(a.shape[0], -1).any(1)
+                raise AssertionError(f"shade {label}: output {k} differs from the "
+                                     f"plain version on {int(diff.sum())} of "
+                                     f"{diff.numel()} lanes")
+
+    def hit_fields(h):
+        return [getattr(h, f.name) for f in dataclasses.fields(h)]
+
+    cases = calls = 0
+    launches = shade.shade_kernel.launches
+    for n in SHADE_LANES:
+        for name, sc in scenes.items():
+            if name == "perm" and n not in SHADE_PERM_LANES:
+                continue
+            x = shade_inputs(np_rng, n, dev)
+            walk = (x["pos"], x["d"], x["thr"], x["light"], x["state"])
+            for alive in (None, x["alive"]):
+                label = f"{name}, {n} lanes, {'dead lanes' if alive is not None else 'all alive'}"
+                ref = nearest_hit(x["pos"], x["d"], sc, alive=alive)
+                same(f"bounce {label}",
+                     shade.shade_kernel("bounce", *walk, ref, alive, sc),
+                     shade.bounce_plain(*walk, ref, alive, sc))
+                hit = resolve_hit(x["pos"], x["d"], ref, sc)
+                same(f"step {label}", shade.shade_kernel("step", *walk, hit, alive, sc),
+                     shade.step_plain(*walk, hit, alive, sc))
+                act = torch.ones_like(x["alive"]) if alive is None else alive
+                (kh, kl), (ph, pl) = (
+                    shade.shade_kernel("primary", x["pos"], x["d"], ref, act, sc),
+                    shade.primary_plain(x["pos"], x["d"], ref, act, sc))
+                same(f"primary {label}", hit_fields(kh) + [kl], hit_fields(ph) + [pl])
+                for group in (1, 2):
+                    w = n // group
+                    sid = (2**32 + 3 if group == 1 else
+                           torch.arange(group, device=dev).repeat_interleave(w) + 2**32 + 3)
+                    args = (2**31 + 11, torch.arange(w * group, device=dev) * 5 + 2**33,
+                            sid, hit.normal[:w * group], hit.smoothness[:w * group, None],
+                            x["d"][:w * group], hit.albedo[:w * group].amax(dim=-1), sc)
+                    same(f"open group {group} {label}", shade.shade_kernel("open", *args),
+                         shade.open_plain(*args))
+                    calls += w > 0
+                cases += 1
+                calls += 3
+    torch.cuda.synchronize()
+    if shade.shade_kernel.launches - launches != calls:
+        raise AssertionError(f"shade: {shade.shade_kernel.launches - launches} "
+                             f"launches for {calls} kernel calls with lanes")
+
+    # A whole frame on each route.
+    cam = Camera.look_at()
+    before, launches = dict(COUNTS), shade.shade_kernel.launches
+    img_k, n_k = render(box, cam, **run)
+    torch.cuda.synchronize()
+    launches = shade.shade_kernel.launches - launches
+    k_lanes = {k: COUNTS[k] - before[k] for k in ("shade.kernel_lanes", "shade.torch_lanes")}
+    albedo = box.triangles.albedo.clone().requires_grad_(True)
+    before = dict(COUNTS)
+    img_t, n_t = render(with_leaves(box, {".triangles.albedo": albedo}), cam,
+                        early_exit=False, **run)
+    torch.cuda.synchronize()
+    t_lanes = {k: COUNTS[k] - before[k] for k in ("shade.kernel_lanes", "shade.torch_lanes")}
+    if k_lanes["shade.torch_lanes"] or not k_lanes["shade.kernel_lanes"]:
+        raise AssertionError(f"shade frame: the production frame's lanes {k_lanes}")
+    if t_lanes["shade.kernel_lanes"] or not t_lanes["shade.torch_lanes"]:
+        raise AssertionError(f"shade frame: the grad frame's lanes {t_lanes}")
+    img_t = img_t.detach()
+    if n_k != n_t or not torch.equal(img_k.view(torch.int32), img_t.view(torch.int32)):
+        raise AssertionError(f"shade frame: kernel route {n_k} rays, torch route {n_t}; "
+                             f"{int((img_k != img_t).any(-1).sum())} pixels differ")
+    frame = {"rays": n_k, "lanes": k_lanes["shade.kernel_lanes"],
+             "mean": float(img_k.mean()), "launches": launches}
+    del img_t, albedo
+    torch.cuda.empty_cache()
+
+    # The bounce entry at a loop's width: kernel, host, device, plain, bound.
+    x = shade_inputs(np_rng, SHADE_TIMED, dev)
+    walk = (x["pos"], x["d"], x["thr"], x["light"], x["state"])
+    ref = nearest_hit(x["pos"], x["d"], box)
+    timed = split_times(lambda: shade.shade_kernel("bounce", *walk, ref, None, box),
+                        "shade_kernel")
+    timed["plain"] = cuda_ms(lambda: shade.bounce_plain(*walk, ref, None, box), 20)
+    timed["bytes"] = SHADE_TIMED * SHADE_LANE_BYTES
+    timed["bound"] = bound(0, 0, timed["bytes"])
+    # The host time a call that the route test and the scene's table
+    # pointers take, in us (the pointers built anew and reused).
+    per_call = lambda fn: min(timeit.repeat(fn, number=SHADE_HOST_CALLS,
+                                            repeat=5)) / SHADE_HOST_CALLS * 1e6
+    host = {"route": per_call(lambda: shade.kernel_route(box, *walk[:4])),
+            "tables": per_call(lambda: shade._scene_tables(box, dev)),
+            "tables reused": per_call(lambda: shade._scene_args(box, dev))}
+    return {"cases": cases, "frame": frame, "timed": timed, "host": host,
+            "report": _build.ptxas_report("shade_kernel")}
+
+
 def check_modes(dev, run=MODES_RUN) -> dict:
     """Phase 6. Returns ``{mode: (seconds, traced rays, search_brute
     launches)}``; raises on a broken identity."""
@@ -1807,6 +2003,7 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
     from raytracingc_tpu_torch.camera import Camera, primary_rays
     from raytracingc_tpu_torch.diff import fit_camera, fit_scene
     from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
+    from raytracingc_tpu_torch.ops.shade import shade_kernel
     from raytracingc_tpu_torch.render.integrator import trace_accumulate
     from raytracingc_tpu_torch.render.renderer import render
     from raytracingc_tpu_torch.scene.types import scene_leaves, with_leaves
@@ -1863,11 +2060,14 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
 
     def timed(name, fit, **kw):
         sync()
-        k2 = search_bitmask.launches
+        k2, shaded = search_bitmask.launches, shade_kernel.launches
         t = time.time()
         result, losses = fit(**kw)
         sync()
         out[name] = (losses, time.time() - t, search_bitmask.launches - k2)
+        if shade_kernel.launches != shaded:  # a fit's steps take the torch route
+            raise AssertionError(f"run q {name}: shade_kernel launched "
+                                 f"{shade_kernel.launches - shaded} times")
         return result
 
     for name, fit in fits.items():
@@ -1914,12 +2114,14 @@ def kernel_counters() -> dict:
     from raytracingc_tpu_torch.ops.search_range import search_range
     from raytracingc_tpu_torch.ops.search_union import search_union
     from raytracingc_tpu_torch.ops.search_words import search_words
+    from raytracingc_tpu_torch.ops.shade import shade_kernel
     from raytracingc_tpu_torch.tools import smem_probe
 
     return {"search_brute": search_brute, "search_bitmask": search_bitmask,
             "search_packed": search_packed, "search_range": search_range,
             "search_words": search_words, "search_mxu": search_mxu,
-            "search_union": search_union, "smem_probe": smem_probe.smem_probe}
+            "search_union": search_union, "smem_probe": smem_probe.smem_probe,
+            "shade_kernel": shade_kernel}
 
 
 def _same_bits(a, b) -> bool:
@@ -1968,6 +2170,7 @@ def run_parallel_one_rank(dev, run=PARALLEL, train=TRAIN,
     import torch
 
     from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.ops.shade import shade_kernel
     from raytracingc_tpu_torch.parallel import (
         make_mesh,
         pad_scene_for_blocks,
@@ -2007,6 +2210,7 @@ def run_parallel_one_rank(dev, run=PARALLEL, train=TRAIN,
                                  f"replicated render's bits ({m} against {n} rays)")
     scene = train_scene(dev)
     target = _train_target(scene, cam, train)
+    shaded = shade_kernel.launches
     t = time.time()
     loss, grads = _step_grads(scene, cam, target, train, None)
     out["train step"] = (time.time() - t, loss)
@@ -2014,6 +2218,9 @@ def run_parallel_one_rank(dev, run=PARALLEL, train=TRAIN,
     mesh_loss, mesh_grads = _step_grads(scene, cam, target, train,
                                         make_mesh(1, 1, device_type=dev.type))
     out["train step, one-rank mesh"] = (time.time() - t, mesh_loss)
+    if shade_kernel.launches != shaded:
+        raise AssertionError(f"run v: the train steps launched shade_kernel "
+                             f"{shade_kernel.launches - shaded} times")
     if mesh_loss != loss or not all(_same_bits(mesh_grads[k], g)
                                     for k, g in grads.items()):
         raise AssertionError("run v: the one-rank mesh's training step is not "
@@ -2126,6 +2333,7 @@ def parallel_rank(rank: int, cfg: dict) -> int:
     timed("jvp samples", sharded_jvp)
     scene = train_scene(dev)
     target = _train_target(scene, cam, train)
+    mark("train target")
     mesh = make_mesh(n, 1, device_type=device_type)
     _step_grads(scene, cam, target, train, mesh)  # warm: autograd's first call
     t = time.time()
@@ -2305,7 +2513,8 @@ def check_forward_mode(dev, count) -> dict:
     def timed(label, fn):
         sync()
         t = time.time()
-        result, k1 = count("search_brute", f"x {label}", lambda: (fn(), sync())[0])
+        result, k1 = count("search_brute", f"x {label}", lambda: (fn(), sync())[0],
+                           shade=label == "production")
         out[label] = (time.time() - t, k1)
         return result
 
@@ -2392,7 +2601,8 @@ def check_jacfwd(dev, count) -> dict:
     def timed(label, fn):
         sync()
         t = time.time()
-        result, k1 = count("search_brute", f"x'' {label}", lambda: (fn(), sync())[0])
+        result, k1 = count("search_brute", f"x'' {label}", lambda: (fn(), sync())[0],
+                           shade=label.startswith("render"))
         out[label] = (time.time() - t, k1)
         return result
 
@@ -2456,10 +2666,8 @@ def run_dispatch(dev, kernels, totals) -> tuple:
             totals[k] += f.launches
             f.launches = 0
         want = expect[row["leg"]]
-        others = {k: v for k, v in launched.items() if v and k != want}
-        if launched[want] < 1 or others:
-            raise AssertionError(f"run y {row['leg']} level {row['level']}: "
-                                 f"launches {launched}")
+        check_launches(f"run y {row['leg']} level {row['level']}", launched, want,
+                       shade=True)
         row["launches"] = launched[want]
         print(f"  {dc.line(row)}, {launched[want]} {want} launches", flush=True)
 
@@ -2595,7 +2803,7 @@ def main() -> int:
         "search_range_kernel",
         "search_words_kernel", "range_items_kernel", "words_items_kernel",
         "unpack_keys_kernel", "search_mxu_kernel", "mxu_pack_kernel",
-        "mxu_items_kernel")}
+        "mxu_items_kernel", "shade_kernel")}
     spilled = [k for k in NO_SPILLS if re.search(r"[1-9]\d* bytes spill", reports[k])]
     if spilled:
         raise AssertionError(f"ptxas spills in {spilled}: {reports}")
@@ -2686,6 +2894,29 @@ def main() -> int:
           f"torch.sum over 24 MiB ({l2 / 1e12:.3f} TB/s, an achieved rate, not "
           f"a peak): {smem_staged / l2 * 1e3:.5f} ms")
 
+    # 3f. The shading kernel vs plain, and a frame on each route.
+    t = time.time()
+    shade_out = check_shade_kernel(dev, rng)
+    st = shade_out["timed"]
+    phase("kernel", t, f"shade_kernel == its plain versions bitwise, every entry "
+          f"(bounce, step, primary, open at group 1 and 2), on {shade_out['cases']} "
+          f"cases ({SHADE_LANES} lanes x box_scene with and without its sphere, its "
+          f"64-fold tessellation through the permuted resolve table at "
+          f"{SHADE_PERM_LANES}; {DEAD:.0%} dead and all alive); 1080p 2 spp 8 "
+          f"bounces, kernel route == torch route (albedo requiring grad): "
+          f"{shade_out['frame']['rays']} rays both, every pixel's bits, "
+          f"{shade_out['frame']['lanes']} kernel lanes in "
+          f"{shade_out['frame']['launches']} launches, mean "
+          f"{shade_out['frame']['mean']:.5f}; host us a call: route "
+          f"{shade_out['host']['route']:.2f}, table pointers "
+          f"{shade_out['host']['tables']:.2f} built, "
+          f"{shade_out['host']['tables reused']:.2f} reused; "
+          f"bounce at {SHADE_TIMED} lanes: events {st['ms']:.4f} ms (host "
+          f"{st['host']:.4f} ms a call, device {st['profiler']:.4f} ms a launch by "
+          f"torch.profiler), plain {st['plain']:.4f} ms, bound {st['bound'][0]:.5f} ms "
+          f"({st['bound'][1]}, {st['bytes']} bytes; device at "
+          f"{st['bound'][0] / st['profiler']:.1%}); ptxas: {shade_out['report']}")
+
     # 4. Main path: the CLI in default mode and under the knobs that pick a
     # kernel, then the two tools, on the card. Every kernel's count is set
     # to 0 just before each run and read just after it.
@@ -2716,11 +2947,7 @@ def main() -> int:
             mean = float(img.mean())
             with open(out, "rb") as f:
                 digest = hashlib.sha256(f.read()).hexdigest()[:16]
-            if launched[expect] < 1:
-                raise AssertionError(f"{label}: {expect} never launched")
-            others = {k: v for k, v in launched.items() if k != expect and v}
-            if others:
-                raise AssertionError(f"{label}: other kernels launched: {others}")
+            check_launches(label, launched, expect, shade=True)
             if img.shape != (*shape, 3):
                 raise AssertionError(f"{label}: image shape {img.shape}")
             if not MEAN_BAND[0] <= mean <= MEAN_BAND[1]:
@@ -2754,12 +2981,13 @@ def main() -> int:
                         f"{float((img != other).mean()):.4%} of bytes differ")
             phase("main", t, f"{label}: render {render_s:.3f}s, {rays} rays, "
                   f"{rays / render_s:.4g} rays/s, {launched[expect]} {expect} "
-                  f"launches, mean byte {mean:.2f}, BMP sha256 {digest}{same}")
+                  f"launches, {launched['shade_kernel']} shade_kernel launches, mean "
+                  f"byte {mean:.2f}, BMP sha256 {digest}{same}")
 
         # Runs (r)-(u): progressive rendering and its resume, the heatmap,
         # the trace and the loader entry point.
-        count = lambda expect, label, fn: counted(kernels, total_launches, expect,
-                                                  label, fn)
+        count = lambda expect, label, fn, shade=True: counted(
+            kernels, total_launches, expect, label, fn, shade)
         t = time.time()
         prog = check_progressive(dev, tmp, cli_main, count,
                                  os.path.join(tmp, "main_b.bmp"), traced["b"])
@@ -2872,9 +3100,9 @@ def main() -> int:
     launched = {k: fn.launches for k, fn in kernels.items()}
     for k, v in launched.items():
         total_launches[k] += v
-    others = {k: v for k, v in launched.items() if k != "search_bitmask" and v}
-    if launched["search_bitmask"] < 1 or others:
-        raise AssertionError(f"run q: launches {launched}")
+    # The target and the production twin render with no derivative; each
+    # fit's steps launched no shading kernel (run_training checks).
+    check_launches("run q", launched, "search_bitmask", shade=True)
     phase("main", t, f"q: training, box_scene --tessellate {TRAIN_TESSELLATE}, "
           f"{TRAIN}: one albedo step forward {t_fwd:.3f}s (production's bits), "
           f"backward {t_bwd:.3f}s, backward/forward {t_bwd / t_fwd:.2f}; " + "; ".join(
@@ -2914,10 +3142,8 @@ def main() -> int:
     def parallel_launches(label, launched):
         for k, v in launched.items():
             total_launches[k] += v
-        others = {k: v for k, v in launched.items()
-                  if v and k not in ("search_brute", "search_bitmask")}
-        if launched["search_brute"] < 1 or launched["search_bitmask"] < 1 or others:
-            raise AssertionError(f"run {label}: launches {launched}")
+        check_launches(f"run {label}", launched, ("search_brute", "search_bitmask"),
+                       shade=True)
         return launched
 
     t = time.time()
@@ -2945,13 +3171,16 @@ def main() -> int:
         ranks = run_parallel_ranks(dev, tmp, cli_main)
     launched = {k: fn.launches for k, fn in kernels.items()}
     for r in ranks["ranks"]:
-        for label, want in (("cli", "search_brute"), ("samples", "search_brute"),
-                            ("jvp samples", "search_brute"),
-                            ("blocks", "search_bitmask"),
-                            ("train", "search_bitmask")):
-            if r["launches"][label][want] < 1:
-                raise AssertionError(f"run w, rank {r['rank']}: its {label} run "
-                                     f"launched no {want}: {r['launches'][label]}")
+        # The block-sharded render resolves in torch and steps on the
+        # shading kernel; the jvp and the train step take the torch route.
+        for label, want, shaded in (
+                ("cli", "search_brute", True), ("samples", "search_brute", True),
+                ("jvp samples", "search_brute", False),
+                ("blocks", "search_bitmask", True),
+                ("train target", "search_bitmask", True),
+                ("train", "search_bitmask", False)):
+            check_launches(f"run w, rank {r['rank']}, its {label} run",
+                           r["launches"][label], want, shaded)
         for per_run in r["launches"].values():
             for k, v in per_run.items():
                 launched[k] += v
@@ -2974,8 +3203,8 @@ def main() -> int:
     # 8. The last entry points: forward mode (run (x); its sample-sharded
     # half ran in (w)), the dispatch grid (y), the granule counts (z) and
     # the four examples (x'), each counted like the main runs.
-    count = lambda expect, label, fn: counted(kernels, total_launches, expect,
-                                              label, fn)
+    count = lambda expect, label, fn, shade=True: counted(
+        kernels, total_launches, expect, label, fn, shade)
     t = time.time()
     fwd, fwd_rel = check_forward_mode(dev, count)
     w_jvp = [r["jvp samples"] for r in ranks["ranks"]]
@@ -3035,7 +3264,8 @@ def main() -> int:
     # these inputs need: every (ray, triangle) pair the kernel's culling
     # table makes it test (live rays x n_live for brute).
     src = "raytracingc_tpu_torch/csrc/{}.cu"
-    sources = {"search_union": src.format("search_words")}
+    sources = {"search_union": src.format("search_words"),
+               "shade_kernel": src.format("shade")}
     tpu = "raytracingc_tpu/ops/intersect_pallas.py:{}"
     packet_row = lambda label: (packet_times[label], packet_bound[label])
     k1 = timed[BRUTE_TIMED]
@@ -3059,6 +3289,8 @@ def main() -> int:
          union_bound[UNION_TIMED], union_err),
         ("smem_probe", "tools/smem_probe.py:20", (smem_ms["ms"], smem_ms["plain"]),
          bound(smem_work[0], 0, smem_work[1]), 0.0),
+        ("shade_kernel", "none (XLA's fusions of the integrator's per-lane ops)",
+         (st["ms"], st["plain"]), st["bound"], 0.0),
     ]
     phase("total", t0, "chip_smoke.py up to the kernel line")
     print(smi)

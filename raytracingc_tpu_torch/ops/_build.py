@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+_UINT = ctypes.c_uint
 
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
@@ -63,6 +64,12 @@ _SIGNATURES = {
     "rtc_smem_probe": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P, _INT, _VOID_P], _INT),
     "rtc_smem_set_limit": ([_INT], _INT),
     "rtc_smem_optin": ([_INT, _VOID_P], _INT),
+    "rtc_shade_bounce": ([_VOID_P, _INT] + [_VOID_P] * 9 + [_INT] + [_VOID_P] * 7, _INT),
+    "rtc_shade_step": ([_VOID_P, _INT] + [_VOID_P] * 12 + [_INT] + [_VOID_P] * 7, _INT),
+    "rtc_shade_primary": ([_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] + [_VOID_P] * 8,
+                          _INT),
+    "rtc_shade_open": ([_UINT, _VOID_P, _VOID_P, _UINT] + [_VOID_P] * 4 + [_INT]
+                       + [_VOID_P] * 4, _INT),
     "rtc_error_string": ([_INT], ctypes.c_char_p),
 }
 

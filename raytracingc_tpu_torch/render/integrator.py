@@ -26,16 +26,24 @@ card's kernels too: the search wrappers carry no tangent
 live lanes are those live in any element, masked per element, so each
 element's values are its own call's bit for bit.
 
+The resolve, the bounce step, the environment light and the RNG draws of
+each bounce go through ``ops/shade.py``: on a card, where no derivative can
+be seen, one CUDA kernel launch per call (``csrc/shade.cu``) with the torch
+composition's bits (a block-sharded scene's resolve stays in torch);
+otherwise the torch composition itself.
+
 Traced rays are counted as Python integers (exact at any size; the JAX
 package sums them in float32).
 
 Spans (``utils/profiling.trace_annotation``): ``rtc.primary`` holds the
 primary search and resolve, ``rtc.bounce`` each loop iteration that
 searches, ``rtc.compact`` the live-lane selection (a host sync) with its
-gathers and write-backs, ``rtc.shade`` the bounce body and the hit-front
-continuation's bounce-0 radiance, streams, scatter and roulette. Counters:
-``integrator.bounces`` one per search made, ``integrator.lanes`` what is
-added to the returned count.
+gathers and write-backs, ``rtc.shade`` the bounce body, the hit-front's
+bounce-0 radiance (inside ``rtc.primary``, with the primary resolve) and its
+continuations' streams, scatter and roulette (on the kernel route the
+loop's fused resolve and step; the primary resolve's launch, with the
+bounce-0 radiance, is ``rtc.resolve``). Counters: ``integrator.bounces`` one per search
+made, ``integrator.lanes`` what is added to the returned count.
 
 :func:`render_debug` is the reference's ``calcDebugColor``: the same walk
 without Russian roulette, shading each pixel by its bounce count.
@@ -49,7 +57,7 @@ import torch
 
 from raytracingc_tpu_torch import rng
 from raytracingc_tpu_torch.camera import primary_rays
-from raytracingc_tpu_torch.ops.env_light import environment_light
+from raytracingc_tpu_torch.ops import shade
 from raytracingc_tpu_torch.ops.intersect import (
     Hit,
     nearest_hit,
@@ -57,56 +65,10 @@ from raytracingc_tpu_torch.ops.intersect import (
     with_perm_resolve,
 )
 from raytracingc_tpu_torch.ops.no_tangent import lane_count, live_lanes
+from raytracingc_tpu_torch.ops.shade import normalize as _normalize
+from raytracingc_tpu_torch.ops.shade import reflect as _reflect
 from raytracingc_tpu_torch.scene.types import Scene, scene_leaves
 from raytracingc_tpu_torch.utils.profiling import COUNTS, tally, trace_annotation
-
-
-def _normalize(v: torch.Tensor) -> torch.Tensor:
-    x, y, z = v.unbind(-1)
-    norm = torch.sqrt(x * x + y * y + z * z)
-    return v / torch.clamp_min(norm, 1e-12)[:, None]
-
-
-def _reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """Mirror reflection."""
-    dn = d[:, 0] * n[:, 0] + d[:, 1] * n[:, 1] + d[:, 2] * n[:, 2]
-    return d - 2.0 * dn[:, None] * n
-
-
-def _step(pos, d, thr, light, state, hit: Hit, alive, scene: Scene):
-    """One bounce on the given hit: scatter, emission, roulette and miss.
-    ``alive`` is a bool ``[R]`` mask, or None when every lane is alive.
-    Returns the next ``(pos, d, thr, light, state, alive)``."""
-    with trace_annotation("rtc.shade"):
-        state, unit = rng.next_unit_vector(state)
-        diffuse = _normalize(hit.normal + unit)
-        specular = _reflect(d, hit.normal)
-        smooth = hit.smoothness[:, None]
-        new_dir = (1.0 - smooth) * diffuse + smooth * specular
-
-        # Emission weighted by the PRE-update throughput, then albedo.
-        live_hit = hit.hit if alive is None else alive & hit.hit
-        live_miss = ~live_hit if alive is None else alive & ~hit.hit
-        hm = live_hit[:, None]
-        emitted = hit.albedo * hit.emission[:, None]
-        light = light + torch.where(hm, emitted * thr, 0.0)
-        new_thr = thr * hit.albedo
-
-        # Russian roulette: survive iff p >= u. amax shares its gradient evenly
-        # between tied channels, as jnp.max does.
-        state, u_rr = rng.next_uniform(state)
-        p = new_thr.amax(dim=-1)
-        survive = p >= u_rr
-        new_thr = new_thr / torch.where(p > 0.0, p, 1.0)[:, None]
-
-        # Miss: add the environment light and end the path.
-        env = environment_light(d, scene.env)
-        light = light + torch.where(live_miss[:, None], env * thr, 0.0)
-
-        thr = torch.where(hm, new_thr, thr)
-        pos = torch.where(hm, hit.point, pos)
-        d = torch.where(hm, new_dir, d)
-        return pos, d, thr, light, state, live_hit & survive
 
 
 def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
@@ -137,7 +99,7 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
         alive = (torch.ones((r,), dtype=torch.bool, device=dev)
                  if active is None else active)
         count = tally("integrator.lanes", lane_count(alive))
-        pos, d, thr, light_full, state, active = _step(
+        pos, d, thr, light_full, state, active = shade.step(
             pos, d, thr, light_full, state, first_hit, alive, scene)
         max_bounce -= 1
 
@@ -153,10 +115,9 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
         with trace_annotation("rtc.bounce"):
             COUNTS["integrator.bounces"] += 1
             count += tally("integrator.lanes", n if alive is None else alive.sum())
-            hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend),
-                              scene)
-            pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
-                                                     alive, scene)
+            pos, d, thr, light, state, alive = shade.bounce(
+                pos, d, thr, light, state,
+                nearest_hit(pos, d, scene, backend=backend), alive, scene)
             with trace_annotation("rtc.compact"):
                 keep, union = live_lanes(alive)
                 if keep.numel() < n:
@@ -180,16 +141,15 @@ def _trace_masked(origins, dirs, rng_state, scene: Scene, max_bounce: int,
     r = origins.shape[0]
     thr = torch.ones((r, 3), dtype=torch.float32, device=origins.device)
     count = tally("integrator.lanes", lane_count(active))
-    pos, d, thr, light, state, alive = _step(origins, dirs, thr, torch.zeros_like(thr),
-                                             rng_state, first_hit, active, scene)
+    pos, d, thr, light, state, alive = shade.step(
+        origins, dirs, thr, torch.zeros_like(thr), rng_state, first_hit, active, scene)
     for _ in range(max_bounce - 1):
         with trace_annotation("rtc.bounce"):
             COUNTS["integrator.bounces"] += 1
             count += tally("integrator.lanes", lane_count(alive))
-            hit = resolve_hit(pos, d, nearest_hit(pos, d, scene, backend=backend,
-                                                  alive=alive), scene)
-            pos, d, thr, light, state, alive = _step(pos, d, thr, light, state, hit,
-                                                     alive, scene)
+            pos, d, thr, light, state, alive = shade.bounce(
+                pos, d, thr, light, state,
+                nearest_hit(pos, d, scene, backend=backend, alive=alive), alive, scene)
     return light, count
 
 
@@ -268,25 +228,26 @@ def trace_accumulate(origins, dirs, scene: Scene, ray_ids, seed: int, spp: int,
         return torch.zeros((r, 3), dtype=torch.float32, device=origins.device), 0
     act = (torch.ones((r,), dtype=torch.bool, device=origins.device)
            if active is None else active)
-    # Primary hits are the same for every sample: search and resolve once.
+    hit_front = sample_batch == 1 and (early_exit or compact)
+    # Primary hits are the same for every sample: search and resolve once
+    # (with the hit-front's bounce-0 radiance over its live hit lanes).
     with trace_annotation("rtc.primary"):
         COUNTS["integrator.bounces"] += 1
-        hit0 = resolve_hit(
-            origins, dirs,
-            nearest_hit(origins, dirs, scene, backend=backend, alive=act), scene,
-        )
+        ref = nearest_hit(origins, dirs, scene, backend=backend, alive=act)
+        hitm = ref.hit & act if hit_front else None
+        hit0, light0 = shade.primary(origins, dirs, ref, act, scene, hitm)
     if sample_batch > 1:
         return _batch_accumulate(origins, dirs, scene, ray_ids, seed,
                                  sample_offset, spp, max_bounce, backend, act,
                                  hit0, sample_batch, early_exit)
-    if early_exit or compact:
+    if hit_front:
         if sample_group == "auto":
             cap = max(65536 // max(r // 8, 1), 1)
             sample_group = next(g for g in range(min(cap, spp), 0, -1)
                                 if spp % g == 0)
         return _hit_front_accumulate(
             origins, dirs, scene, ray_ids, seed, sample_offset, spp, max_bounce,
-            backend, act, hit0, int(sample_group),
+            backend, act, hit0, hitm, light0, int(sample_group),
         )
     acc = torch.zeros((r, 3), dtype=torch.float32, device=origins.device)
     count = 0
@@ -330,7 +291,8 @@ def _batch_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
 
 
 def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
-                          max_bounce, backend, act, hit0: Hit, group: int):
+                          max_bounce, backend, act, hit0: Hit, hitm, light0,
+                          group: int):
     """Sample accumulation with the primary hits compacted once per chunk.
 
     The bounce-0 radiance (emission on hit lanes, environment light on miss
@@ -339,15 +301,11 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
     bounces 1..N-1) runs on the primary-hit lanes only, ``group`` samples at
     a time as one batch (lane ``k * width + i`` is sample ``k`` of hit slot
     ``i``; the slices are added in sample order), and the per-lane result is
-    ``light0 * spp + sum_s(rest_s)``, then divided by ``spp``.
+    ``light0 * spp + sum_s(rest_s)``, then divided by ``spp``. ``hitm`` is
+    ``hit0.hit & act``; ``light0`` comes with ``hit0`` from the primary
+    resolve.
     """
     r = origins.shape[0]
-    hitm = hit0.hit & act
-    with trace_annotation("rtc.shade"):
-        emitted = hit0.albedo * hit0.emission[:, None]
-        env = environment_light(dirs, scene.env)
-        light0 = (torch.where(hitm[:, None], emitted, 0.0)
-                  + torch.where((act & ~hit0.hit)[:, None], env, 0.0))
     count = tally("integrator.lanes", lane_count(act) * spp)
 
     with trace_annotation("rtc.compact"):
@@ -377,14 +335,10 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
         for s in range(0, spp, group):
             with trace_annotation("rtc.shade"):
                 sid = offset + s if group == 1 else lane_sample + (offset + s)
-                state = rng.stream_init(seed, ids, sid)
                 # Same draw order as a full bounce: 6 for the unit vector, 1
                 # for roulette.
-                state, unit = rng.next_unit_vector(state)
-                diffuse = _normalize(normal + unit)
-                new_dir = (1.0 - smooth) * diffuse + smooth * spec
-                state, u_rr = rng.next_uniform(state)
-                survive = p >= u_rr
+                state, new_dir, survive = shade.open_sample(
+                    seed, ids, sid, normal, smooth, spec, p, scene)
             light_s, cnt = trace_paths(
                 point, new_dir, state, scene, max_bounce - 1, backend=backend,
                 active=survive if hit_sel is None else survive & hit_sel,

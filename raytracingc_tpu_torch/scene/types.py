@@ -24,7 +24,9 @@ MISS_DST = 999999.0
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    """A contiguous float32 tensor (a column of a vertex array is copied),
+    as the kernels' tables are read."""
+    return torch.as_tensor(np.asarray(x, np.float32), device=device).contiguous()
 
 
 def _to(obj, device):

@@ -10,10 +10,10 @@ Counterpart of ``raytracingc_tpu/utils/profiling.py``:
   the kernels it launches. Unlike a user-scope ``record_function`` it has no
   device-side copy (``gpu_user_annotation``), so a profile's device
   activity holds the kernels, copies and fills alone.
-* :data:`COUNTS` and :func:`tally`: counters of the integrator's and the
-  search's work, always on, filled by plain integer adds from values the
-  host already holds (no device sync). :func:`counters` snapshots them with
-  each search wrapper's launch counter.
+* :data:`COUNTS` and :func:`tally`: counters of the integrator's, the
+  search's and the shading's work, always on, filled by plain integer adds
+  from values the host already holds (no device sync). :func:`counters`
+  snapshots them with each kernel wrapper's launch counter.
 * :func:`start_trace` / :func:`stop_trace`: a ``torch.profiler.profile``
   over the CPU and, where a card is present, CUDA activities, for a window
   of work; :func:`stop_trace` writes a Chrome trace (``chrome://tracing``,
@@ -35,9 +35,12 @@ _NO_SPAN = contextlib.nullcontext()
 
 # Counters of work: one per search the integrator makes (primary calls and
 # loop iterations), the lanes it adds to the traced-ray count it returns
-# (where that amount is a Python int), and the ray-triangle pairs handed to
-# the brute-force search (every lane given to it, times the live triangles).
-COUNTS = dict.fromkeys(("integrator.bounces", "integrator.lanes", "search.pairs"), 0)
+# (where that amount is a Python int), the ray-triangle pairs handed to the
+# brute-force search (every lane given to it, times the live triangles), and
+# the lanes of the resolve and shading calls (ops/shade.py) by their route:
+# the CUDA kernel or the torch composition.
+COUNTS = dict.fromkeys(("integrator.bounces", "integrator.lanes", "search.pairs",
+                        "shade.kernel_lanes", "shade.torch_lanes"), 0)
 
 
 def trace_annotation(name: str, **args):
@@ -59,7 +62,7 @@ def tally(name: str, n):
 
 def counters() -> dict:
     """A snapshot of every counter of the program: :data:`COUNTS` and each
-    search wrapper's ``.launches`` as ``launches.<wrapper>``."""
+    kernel wrapper's ``.launches`` as ``launches.<wrapper>``."""
     from raytracingc_tpu_torch.ops import (
         intersect_mxu,
         search_bitmask,
@@ -68,13 +71,14 @@ def counters() -> dict:
         search_range,
         search_union,
         search_words,
+        shade,
     )
 
     out = dict(COUNTS)
     for fn in (search_brute.search_brute, search_bitmask.search_bitmask,
                search_packed.search_packed, search_words.search_words,
                search_range.search_range, search_union.search_union,
-               intersect_mxu.search_mxu):
+               intersect_mxu.search_mxu, shade.shade_kernel):
         out[f"launches.{fn.__name__}"] = fn.launches
     return out
 

@@ -305,14 +305,15 @@ _C_TYPES = {"int": ctypes.c_int, "const char*": ctypes.c_char_p}
 
 def test_c_entry_points_match_their_ctypes_signatures():
     """Every ``extern "C"`` function of csrc/*.cu is bound in _SIGNATURES
-    with one argtype per parameter (a pointer as c_void_p, an int as c_int)
-    and its return type; nothing else is bound."""
+    with one argtype per parameter (a pointer as c_void_p, an int as c_int,
+    an unsigned as c_uint) and its return type; nothing else is bound."""
     found = {}
     for src in sorted(_build.SRC_DIR.glob("*.cu")):
         text = src.read_text()
         for ret, name, params in re.findall(
                 r"^(int|const char\*) (rtc_\w+)\(([^)]*)\)", text, re.M):
-            types = [_build._VOID_P if "*" in p else _build._INT
+            types = [_build._VOID_P if "*" in p
+                     else _build._UINT if p.startswith("unsigned ") else _build._INT
                      for p in (x.strip() for x in params.split(","))]
             found[name] = (types, _C_TYPES[ret])
     assert found == dict(_build._SIGNATURES)

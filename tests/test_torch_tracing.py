@@ -40,7 +40,8 @@ PARENTS = {
     "rtc.primary": {"rtc.chunk", "rtc.train.forward"},
     "rtc.bounce": {"rtc.chunk", "rtc.train.forward"},
     "rtc.compact": {"rtc.chunk", "rtc.bounce", "rtc.train.forward"},
-    "rtc.shade": {"rtc.chunk", "rtc.bounce", "rtc.train.forward"},
+    # rtc.primary: the hit-front's bounce-0 radiance, with the primary resolve.
+    "rtc.shade": {"rtc.chunk", "rtc.primary", "rtc.bounce", "rtc.train.forward"},
     "rtc.search": {"rtc.primary", "rtc.bounce"},
     "rtc.cull": {"rtc.search"},
     "rtc.resolve": {"rtc.primary", "rtc.bounce"},
@@ -214,5 +215,7 @@ def test_counters_hold_the_wrappers_launch_counters(monkeypatch):
     assert snap["launches.search_brute"] == 1234
     assert {k for k in snap if k.startswith("launches.")} == {
         f"launches.search_{k}" for k in
-        ("brute", "bitmask", "packed", "words", "range", "union", "mxu")}
-    assert {"integrator.bounces", "integrator.lanes", "search.pairs"} <= set(snap)
+        ("brute", "bitmask", "packed", "words", "range", "union", "mxu")} | {
+        "launches.shade_kernel"}
+    assert {"integrator.bounces", "integrator.lanes", "search.pairs",
+            "shade.kernel_lanes", "shade.torch_lanes"} <= set(snap)
