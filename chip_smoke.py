@@ -994,6 +994,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
     from raytracingc_tpu_torch.ops.accel import BLOCK, build_accel
     from raytracingc_tpu_torch.ops.search_bitmask import (
         bitmask_table,
+        card_blocks,
         n_packets,
         search_bitmask,
         search_bitmask_reference,
@@ -1023,6 +1024,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         secondary_rays,
         wide_span_rays,
     )
+    from raytracingc_tpu_torch.utils.profiling import COUNTS
 
     import numpy as np
 
@@ -1083,10 +1085,20 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                 first, last = culling.packet_block_ranges(o_p, d_p, a_p, accel)
                 args = (o, d, first, last, plane, oi)
                 table = range_table(first, last, plane.shape[1] // BLOCK)
+            walked0 = (card_blocks(), COUNTS["search.bitmask_blocks"])
             dk, ik = kern(*args)
             dr, ir = plain(*args)
             torch.cuda.synchronize()
             where = f"{label}{suffix} R={n_rays}"
+            # search.bitmask_blocks: K2 adds its walked pairs on the card and
+            # its plain version on the host, both the words' set bits; K3,
+            # which shares the walk, passes no counter.
+            walked = (card_blocks() - walked0[0],
+                      COUNTS["search.bitmask_blocks"] - walked0[1])
+            want = (int(table.sum()),) * 2 if way.kernel == "bitmask" else (0, 0)
+            if walked != want:
+                raise AssertionError(f"{where}: search.bitmask_blocks moved by "
+                                     f"{walked} (card, host), expected {want}")
             if not torch.equal(ik, ir):
                 raise AssertionError(f"{where}: idx differs from the plain "
                                      f"version on {int((ik != ir).sum())} rays")
@@ -1128,7 +1140,8 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
             else:
                 notes.append(f"R={n_rays}{suffix}: {hits} live hits, "
                              f"{int((words != 0).sum())} nonzero words, "
-                             f"{int(table.sum())} (packet, block) pairs")
+                             f"{int(table.sum())} (packet, block) pairs, "
+                             f"search.bitmask_blocks +{walked[0]} on the card")
             if n_rays == TIMED_RAYS and label in TIMED_PACKET:
                 timings[label + suffix] = (cuda_ms(lambda: kern(*args), 20),
                                            cuda_ms(lambda: plain(*args),

@@ -163,13 +163,15 @@ __device__ __forceinline__ void warp_lex_min(float (&best_d)[kPacket],
 // The search of the packet of this warp (packet blockIdx.x * kPacketWarps +
 // warp): words holds n_tiles * n_words words per packet, the plane
 // n_tiles * blocks_per_tile blocks. Writes dst_out and idx_out (-1 on a
-// miss) for the packet's rays below n_rays.
+// miss) for the packet's rays below n_rays. Where blocks_out is not null,
+// lane 0 adds the blocks the warp walked to it (one atomic a warp that
+// walked any).
 __device__ __forceinline__ void search_packet(
     const float* __restrict__ o, const float* __restrict__ d,
     const int32_t* __restrict__ words, const float* __restrict__ plane,
     const int32_t* __restrict__ orig_idx, int n_rays, int n_tiles,
     int n_words, int blocks_per_tile, int granule, float* __restrict__ dst_out,
-    int32_t* __restrict__ idx_out) {
+    int32_t* __restrict__ idx_out, unsigned long long* __restrict__ blocks_out) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kPacketWarps + (threadIdx.x >> 5);
   const int r0 = p * kPacket;
@@ -184,8 +186,13 @@ __device__ __forceinline__ void search_packet(
       static_cast<int64_t>(n_tiles) * blocks_per_tile * kBlock;
   BlockCursor cur{words + static_cast<int64_t>(p) * n_tiles * n_words,
                   n_tiles, n_words, blocks_per_tile, granule};
+  unsigned long long walked = 0ull;
   for (int64_t blk = cur.next(); blk >= 0; blk = cur.next()) {
     test_block(ray, plane, orig_idx, t_stride, blk, lane, best_d, best_i);
+    ++walked;
+  }
+  if (blocks_out != nullptr && lane == 0 && walked != 0ull) {
+    atomicAdd(blocks_out, walked);
   }
 
   float out_d;

@@ -28,6 +28,10 @@
 // (RTC_COL_GROUP) schedule the TPU's scalar core and change no result; they
 // are left out. The words are read from global memory, so no ray slicing
 // to fit a scratch budget is needed.
+//
+// The kernel also counts its work: each warp adds the blocks it walked to a
+// device int64 that the wrapper owns (one atomic a warp), with no launch or
+// host sync of its own; the wrapper reads it only when asked.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,9 +48,10 @@ search_bitmask_kernel(const float* __restrict__ o,          // [R, 3]
                       const int32_t* __restrict__ orig_idx, // [T]
                       int n_rays, int n_words, int n_blocks,
                       float* __restrict__ dst_out,          // [R]
-                      int32_t* __restrict__ idx_out) {      // [R]
+                      int32_t* __restrict__ idx_out,        // [R]
+                      unsigned long long* __restrict__ walked) {  // [1]
   rtc::search_packet(o, d, words, plane, orig_idx, n_rays, 1, n_words,
-                     n_blocks, 1, dst_out, idx_out);
+                     n_blocks, 1, dst_out, idx_out, walked);
 }
 
 }  // namespace
@@ -54,11 +59,12 @@ search_bitmask_kernel(const float* __restrict__ o,          // [R, 3]
 extern "C" {
 
 // Launches the search on `stream` and returns cudaGetLastError() as an int
-// (0 = launched).
+// (0 = launched). The (packet, block) pairs walked are added to the int64 at
+// `walked`.
 int rtc_search_bitmask(const void* o, const void* d, const void* words,
                        const void* plane, const void* orig_idx, int n_rays,
                        int n_words, int n_blocks, void* dst, void* idx,
-                       void* stream) {
+                       void* walked, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const int packets = (n_rays + rtc::kPacket - 1) / rtc::kPacket;
   const int blocks = (packets + rtc::kPacketWarps - 1) / rtc::kPacketWarps;
@@ -67,7 +73,8 @@ int rtc_search_bitmask(const void* o, const void* d, const void* words,
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const int32_t*>(words), static_cast<const float*>(plane),
       static_cast<const int32_t*>(orig_idx), n_rays, n_words, n_blocks,
-      static_cast<float*>(dst), static_cast<int32_t*>(idx));
+      static_cast<float*>(dst), static_cast<int32_t*>(idx),
+      static_cast<unsigned long long*>(walked));
   return static_cast<int>(cudaGetLastError());
 }
 

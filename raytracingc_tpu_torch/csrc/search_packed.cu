@@ -51,7 +51,7 @@ search_packed_kernel(const float* __restrict__ o,           // [R, 3]
                      float* __restrict__ dst_out,           // [R]
                      int32_t* __restrict__ idx_out) {       // [R]
   rtc::search_packet(o, d, words, plane, orig_idx, n_rays, n_tiles, n_words,
-                     blocks_per_tile, granule, dst_out, idx_out);
+                     blocks_per_tile, granule, dst_out, idx_out, nullptr);
 }
 
 }  // namespace

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "rtc_search_brute": ([_VOID_P] * 4 + [_INT, _INT] + [_VOID_P] * 3, _INT),
     "rtc_search_brute_tris": ([_VOID_P] * 7 + [_INT, _INT] + [_VOID_P] * 3, _INT),
     "rtc_search_brute_parts": ([_INT, _INT], _INT),
-    "rtc_search_bitmask": ([_VOID_P] * 5 + [_INT] * 3 + [_VOID_P] * 3, _INT),
+    "rtc_search_bitmask": ([_VOID_P] * 5 + [_INT] * 3 + [_VOID_P] * 4, _INT),
     "rtc_search_packed": ([_VOID_P] * 5 + [_INT] * 5 + [_VOID_P] * 3, _INT),
     "rtc_range_items": ([_VOID_P] * 2 + [_INT] * 2 + [_VOID_P] * 4, _INT),
     "rtc_search_range": ([_VOID_P] * 7 + [_INT] * 2 + [_VOID_P] * 3, _INT),

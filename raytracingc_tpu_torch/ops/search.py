@@ -64,7 +64,8 @@ Every default is the JAX package's value, measured on a TPU and not yet
 re-measured on a GPU.
 
 The culling prelude of a packet or mxu route (packets and their culling
-words, in torch) is one ``rtc.cull`` span.
+words, in torch) is one ``rtc.cull`` span; its packets are counted in
+``search.cull_packets``.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ from raytracingc_tpu_torch.ops.search_packed import search_packed
 from raytracingc_tpu_torch.ops.search_range import search_range
 from raytracingc_tpu_torch.ops.search_words import search_words
 from raytracingc_tpu_torch.scene.types import Triangles
-from raytracingc_tpu_torch.utils.profiling import trace_annotation
+from raytracingc_tpu_torch.utils.profiling import COUNTS, trace_annotation
 
 BRUTE_MAX_TRIS = 1536
 BITMASK_MAX_WORDS = 8
@@ -242,7 +243,8 @@ def route(n_live: int, n_blocks: int, knobs: Knobs) -> Route:
 
 def _cull(o, d, alive, words, *args):
     """The culling prelude: ``words(*packets, *args)`` of the rays' 8-ray
-    packets (``culling.packets``)."""
+    packets (``culling.packets``), counted in ``search.cull_packets``."""
+    COUNTS["search.cull_packets"] += -(-o.shape[0] // culling.RAY_SUBLANES)
     with trace_annotation("rtc.cull"):
         return words(*culling.packets(o, d, alive), *args)
 

@@ -14,6 +14,12 @@ the blocks of the packet's set bits and keeps the lexicographic minimum of
 with a live lane gets its real hit, and a packet without live lanes has no
 bits and misses, exactly as in the JAX package. Returns ``dst [R]`` float32
 and ``idx [R]`` int32 (original order, -1 on a miss).
+
+Both count the (packet, block) pairs they walk, the set bits below the
+scene's last block, into the counter ``search.bitmask_blocks``
+(``utils/profiling.py``): the plain version adds them to the host's count,
+the kernel to an int64 on its card (:func:`card_blocks`), which
+``profiling.counters()`` reads.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from raytracingc_tpu_torch.ops.culling import BITS_PER_WORD, RAY_SUBLANES
 from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_brute import mt_distance
 from raytracingc_tpu_torch.scene.types import MISS_DST
+from raytracingc_tpu_torch.utils.profiling import COUNTS
 
 # (packet, block) pairs per step of the plain search: 2,048 pairs make
 # [2048, 8, 128] float32 temporaries (8 MiB each).
@@ -93,9 +100,22 @@ def bitmask_table(words, n_blocks: int):
 
 
 def search_bitmask_reference(o, d, words, plane, orig_idx):
-    """Plain PyTorch version of the bitmask kernel (same inputs, same bits)."""
+    """Plain PyTorch version of the bitmask kernel (same inputs, same bits,
+    the same pairs counted)."""
     table = bitmask_table(words, plane.shape[1] // BLOCK)
+    COUNTS["search.bitmask_blocks"] += int(table.sum())
     return search_blocks_reference(o, d, plane, orig_idx, table)
+
+
+# The kernel's counts of walked (packet, block) pairs: one int64 [1] tensor
+# per card index, made on the card's first launch.
+_card_blocks: dict = {}
+
+
+def card_blocks() -> int:
+    """The (packet, block) pairs the kernel has walked on every card, read
+    from the cards (a sync of each)."""
+    return sum(int(t.item()) for t in _card_blocks.values())
 
 
 def check_packet_args(o, d, plane, orig_idx, tables):
@@ -133,9 +153,9 @@ def search_bitmask(o, d, words, plane, orig_idx):
     """Bitmask packet search: ``(dst [R], idx [R])``.
 
     A CPU tensor runs :func:`search_bitmask_reference`. A CUDA tensor
-    launches ``csrc/search_bitmask.cu`` (building the library on first use)
-    and counts the launch in ``search_bitmask.launches``; any other device
-    raises.
+    launches ``csrc/search_bitmask.cu`` (building the library on first use,
+    and the card's block counter on its first launch there) and counts the
+    launch in ``search_bitmask.launches``; any other device raises.
     """
     r = o.shape[0]
     check_packet_args(o, d, plane, orig_idx,
@@ -152,13 +172,17 @@ def search_bitmask(o, d, words, plane, orig_idx):
     lib = _build.load_library()
     dst = torch.empty((r,), dtype=torch.float32, device=o.device)
     idx = torch.empty((r,), dtype=torch.int32, device=o.device)
+    blocks = _card_blocks.get(o.device.index)
+    if blocks is None:
+        blocks = _card_blocks[o.device.index] = torch.zeros(
+            (1,), dtype=torch.int64, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream
         code = lib.rtc_search_bitmask(
             o.data_ptr(), d.data_ptr(), words.data_ptr(), plane.data_ptr(),
             orig_idx.data_ptr(), ctypes.c_int(r), ctypes.c_int(words.shape[1]),
             ctypes.c_int(plane.shape[1] // BLOCK),
-            dst.data_ptr(), idx.data_ptr(), stream,
+            dst.data_ptr(), idx.data_ptr(), blocks.data_ptr(), stream,
         )
     _build.check(code, "search_bitmask launch")
     search_bitmask.launches += 1

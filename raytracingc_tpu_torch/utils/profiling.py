@@ -12,8 +12,10 @@ Counterpart of ``raytracingc_tpu/utils/profiling.py``:
   activity holds the kernels, copies and fills alone.
 * :data:`COUNTS` and :func:`tally`: counters of the integrator's, the
   search's and the shading's work, always on, filled by plain integer adds
-  from values the host already holds (no device sync). :func:`counters`
-  snapshots them with each kernel wrapper's launch counter.
+  from values the host already holds (no device sync). The bitmask kernel
+  (K2) counts its walked (packet, block) pairs on its card instead.
+  :func:`counters` snapshots them with each kernel wrapper's launch
+  counter, reading the card's count (the only sync it makes).
 * :func:`start_trace` / :func:`stop_trace`: a ``torch.profiler.profile``
   over the CPU and, where a card is present, CUDA activities, for a window
   of work; :func:`stop_trace` writes a Chrome trace (``chrome://tracing``,
@@ -36,10 +38,14 @@ _NO_SPAN = contextlib.nullcontext()
 # Counters of work: one per search the integrator makes (primary calls and
 # loop iterations), the lanes it adds to the traced-ray count it returns
 # (where that amount is a Python int), the ray-triangle pairs handed to the
-# brute-force search (every lane given to it, times the live triangles), and
-# the lanes of the resolve and shading calls (ops/shade.py) by their route:
-# the CUDA kernel or the torch composition.
+# brute-force search (every lane given to it, times the live triangles), the
+# (packet, block) pairs the bitmask search walks (8 x 128 ray-triangle tests
+# each; here the plain version's, the kernel's on its card), the 8-ray
+# packets handed to any culling prelude (ceil(R / 8) a call), and the lanes
+# of the resolve and shading calls (ops/shade.py) by their route: the CUDA
+# kernel or the torch composition.
 COUNTS = dict.fromkeys(("integrator.bounces", "integrator.lanes", "search.pairs",
+                        "search.bitmask_blocks", "search.cull_packets",
                         "shade.kernel_lanes", "shade.torch_lanes"), 0)
 
 
@@ -61,8 +67,9 @@ def tally(name: str, n):
 
 
 def counters() -> dict:
-    """A snapshot of every counter of the program: :data:`COUNTS` and each
-    kernel wrapper's ``.launches`` as ``launches.<wrapper>``."""
+    """A snapshot of every counter of the program: :data:`COUNTS`, with
+    ``search.bitmask_blocks`` the host's and every card's count together,
+    and each kernel wrapper's ``.launches`` as ``launches.<wrapper>``."""
     from raytracingc_tpu_torch.ops import (
         intersect_mxu,
         search_bitmask,
@@ -75,6 +82,7 @@ def counters() -> dict:
     )
 
     out = dict(COUNTS)
+    out["search.bitmask_blocks"] += search_bitmask.card_blocks()
     for fn in (search_brute.search_brute, search_bitmask.search_bitmask,
                search_packed.search_packed, search_words.search_words,
                search_range.search_range, search_union.search_union,
