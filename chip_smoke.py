@@ -6,7 +6,7 @@ Builds the hand-written CUDA kernels from this checkout's sources (one nvcc
 per source, in parallel), holds each against its plain PyTorch version on
 the card (bit for bit; the tensor-core MXU kernel within its contract; the
 shading kernel's four entries also through a whole 1080p frame on each of
-its two routes),
+its two routes; the culling kernel against the torch prelude),
 drives the renderer's main path through the CLI (the user's entry point) at
 every kernel's scene size and under every search knob that picks a kernel,
 then its progressive (checkpointed, resumed), bounce-heatmap, trace and
@@ -219,7 +219,7 @@ UNION_TIMED = "box 10,240 (--tessellate 5)"  # the union tool's scene
 # the words kernel K9 runs.
 NO_SPILLS = ("search_brute_kernel", "search_range_kernel", "search_words_kernel",
              "search_mxu_kernel", "mxu_pack_kernel", "mxu_items_kernel",
-             "shade_kernel")
+             "shade_kernel", "cull_words_kernel")
 # The K1 instantiation whose MT loop tools/sass_loop.py counts: 8 lanes a
 # ray over a staged table (TIMED_RAYS rays at 640 triangles).
 SASS_KERNEL = "search_brute_kernelILi8ELb0E"
@@ -390,6 +390,42 @@ SHADE_FRAME = dict(width=1920, height=1080, spp=2, max_bounce=8)
 # state and alive (1) out.
 SHADE_LANE_BYTES = 4 * 12 + 8 + 6 + 4 * 12 + 8 + 1
 PIXEL_RTOL = PIXEL_ATOL = 1e-4
+# Phase 3g: the culling prelude's kernel (csrc/cull_words.cu, through each
+# word route's entry, culling.kernel_*) against the torch prelude
+# (culling.packets, then the route's slab tests) bit for bit, at R in
+# CULL_RAYS: (label, scene, live triangles, knobs); the scene is the SPD
+# tetra of the benchmark, a seeded soup or box_scene tessellated to that
+# count. Each case's rays: coherent and secondary-like packets with a share
+# DEAD of dead lanes, the coherent rays with alive=None, and the coherent
+# rays with NaN, infinite, zero, -0.0 and +-1e-21 components in live lanes.
+CULL_RAYS = (65536, 100003)
+CULL_SEED = 20261018  # its own generator: the later phases' data stays as it was
+CULL_CASES = (
+    ("K2 spd_tetra (5 words)", "tetra", 16384, {}),
+    ("K2 soup 1,600 (1 word)", "soup", 1600, {}),
+    ("K2 soup 31,744 (8 words)", "soup", 31744, {}),
+    ("K3 box 40,960 resident", "box", 40960, {}),
+    ("K3 box 163,840 streamed", "box", 163840, {}),
+    ("K6 box 40,960 resident (RTC_STREAM_CULL=words)", "box", 40960,
+     {"RTC_STREAM_CULL": "words"}),
+    ("K7 box 163,840 streamed (RTC_STREAM_CULL=words)", "box", 163840,
+     {"RTC_STREAM_CULL": "words"}),
+    ("K8 box 640 (RTC_KERNEL=mxu)", "box", 640, {"RTC_KERNEL": "mxu"}),
+)
+# Timed on the benchmark's K2 scene at the main path's shapes: a 1080p
+# chunk's primary rays (every lane live) and a compacted bounce's
+# secondary-like rays.
+CULL_TIMED = "K2 spd_tetra (5 words)"
+CULL_TIMED_RAYS = (65536, 16384)
+TETRA_SCENE = os.path.join(HERE, "portbench", "configs", "spd_tetra.txt")
+TETRA_CAMERA = dict(origin=(48.0, -48.0, -340.0), target=(0.0, 0.0, 0.0),
+                    fov=0.11 / (0.5 * 0.036 * 1080 / 1920))
+# FP32 operations of one (ray, box) slab test (csrc/cull_words.cu
+# slab_hit): 6 subtracts, 6 multiplies, 6 min/max of the slabs, 4 of the
+# reductions, the max with 0 and the compare; and of a live ray's
+# reciprocal: 3 abs compares, 3 selects and 3 divisions.
+CULL_SLAB_OPS = 24
+CULL_RAY_OPS = 9
 MIN_CLOSE_FRAC = 0.995
 MAX_MEAN_ABS = 1e-3
 MAX_COUNT_REL = 1e-3
@@ -1830,6 +1866,134 @@ def check_shade_kernel(dev, np_rng, run=SHADE_FRAME):
             "report": _build.ptxas_report("shade_kernel")}
 
 
+def cull_scene(rng, kind: str, n_live: int):
+    """``(Triangles, n_live, ray origin box)`` of a phase-3g case."""
+    from raytracingc_tpu_torch.scene.builder import scene_from_triangles_txt
+
+    if kind == "tetra":
+        scene = scene_from_triangles_txt(TETRA_SCENE)
+        return scene.triangles, scene.n_triangles, ((-70.0,) * 3, (70.0,) * 3)
+    return packet_scene(rng, kind, n_live)
+
+
+def special_lanes(o, d):
+    """Copies of ``o, d`` with NaN, infinite, zero, -0.0 and +-1e-21
+    components in some lanes."""
+    o, d = o.clone(), d.clone()
+    nan, inf = float("nan"), float("inf")
+    o[::97, 0] = nan
+    d[1::89, 1] = nan
+    o[2::83, 2] = inf
+    d[3::79, 0] = -inf
+    d[4::73] = 0.0
+    d[5::71, 1] = -0.0
+    d[6::67, 2] = 1e-21
+    d[7::61, 0] = -1e-21
+    d[8::59, 1] = inf
+    return o, d
+
+
+def check_cull_kernel(dev, rng) -> dict:
+    """Phase 3g. Returns ``{"cases": n, "notes": [...], "timed": {label:
+    split_times + plain, host and bound}}``; raises on any disagreement."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera, primary_rays
+    from raytracingc_tpu_torch.ops import culling, search
+    from raytracingc_tpu_torch.ops.accel import BLOCK, build_accel
+    from raytracingc_tpu_torch.tools import cuda_ms, knobs_set, split_times
+    from raytracingc_tpu_torch.tools.packets import packet_rays, secondary_rays
+
+    import numpy as np
+
+    cases, notes, timed = 0, [], {}
+    for label, kind, n_live, env in CULL_CASES:
+        tris, n, (lo, hi) = cull_scene(rng, kind, n_live)
+        tris = tris.to(dev)
+        accel = build_accel(tris, n)
+        with knobs_set(env):
+            way = search.route(n, accel.n_blocks, search.Knobs.read())
+        if not label.startswith(way.tpu + " "):
+            raise AssertionError(f"{label}: routed to {way}")
+        bpt = way.tile // BLOCK
+        tiles = (accel, way.n_tiles, bpt, way.granule)
+        kernel, prelude, args = {
+            "bitmask": (culling.kernel_block_masks, culling.packet_block_masks,
+                        (accel,)),
+            "mxu": (culling.kernel_union_words, culling.program_union_words, (accel,)),
+            "packed": (culling.kernel_tile_words_multi,
+                       culling.packet_tile_words_multi, tiles),
+            "words": (culling.kernel_tile_words, culling.packet_tile_words, tiles),
+        }[way.kernel]
+        nonzero = []
+        for n_rays in CULL_RAYS:
+            o, d, alive = (torch.from_numpy(x).to(dev)
+                           for x in packet_rays(rng, n_rays, lo, hi))
+            so, sd, salive = (torch.from_numpy(x).to(dev)
+                              for x in secondary_rays(rng, n_rays, lo, hi))
+            po, pd = special_lanes(o, d)
+            for name, (ro, rd, ra) in (("coherent", (o, d, alive)),
+                                       ("secondary", (so, sd, salive)),
+                                       ("alive=None", (o, d, None)),
+                                       ("special values", (po, pd, alive))):
+                launches = culling.cull_words.launches
+                got = kernel(ro, rd, ra, *args)
+                want = prelude(*culling.packets(ro, rd, ra), *args)
+                torch.cuda.synchronize()
+                if culling.cull_words.launches != launches + 1:
+                    raise AssertionError(f"{label} R={n_rays} {name}: "
+                                         f"{culling.cull_words.launches - launches} "
+                                         "launches of cull_words, expected 1")
+                got, want = (got, want) if way.kernel != "mxu" else (
+                    torch.cat([got[0], got[1][:, None]], 1),
+                    torch.cat([want[0], want[1][:, None]], 1))
+                if got.shape != want.shape or not torch.equal(got, want):
+                    bad = int((got != want).sum()) if got.shape == want.shape else -1
+                    raise AssertionError(f"{label} R={n_rays} {name}: words differ "
+                                         f"from the torch prelude ({bad} words)")
+                nonzero.append(int((want != 0).sum()))
+                cases += 1
+        if not all(nonzero[:2]):
+            raise AssertionError(f"{label}: no culling bit set: {nonzero}")
+        notes.append(f"{label} ({way.kernel}, {accel.n_blocks} blocks, words "
+                     f"{tuple(want.shape)}): nonzero words {nonzero}")
+        if label != CULL_TIMED:
+            continue
+        cam = Camera.look_at(device=dev, **TETRA_CAMERA)
+        po, pd = primary_rays(cam, 1920, 1080)
+        mid = (po.shape[0] - CULL_TIMED_RAYS[0]) // 2
+        for n_rays in CULL_TIMED_RAYS:
+            if n_rays == CULL_TIMED_RAYS[0]:
+                tag = f"primary R={n_rays}"
+                ro, rd = po[mid:mid + n_rays].contiguous(), pd[mid:mid + n_rays].contiguous()
+                ra = torch.ones((n_rays,), dtype=torch.bool, device=dev)
+            else:
+                tag = f"secondary R={n_rays}"
+                ro, rd, ra = (torch.from_numpy(x).to(dev)
+                              for x in secondary_rays(rng, n_rays, lo, hi))
+            call = lambda: culling.kernel_block_masks(ro, rd, ra, accel)
+            plain = lambda: culling.packet_block_masks(
+                *culling.packets(ro, rd, ra), accel)
+            if not torch.equal(call(), plain()):
+                raise AssertionError(f"{label} {tag}: words differ from the torch prelude")
+            t = split_times(call, "cull_words_kernel")
+            t["plain"] = cuda_ms(plain, 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                plain()
+            t["plain host"] = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+            live = int(ra.sum())
+            words = -(-n_rays // 8) * -(-accel.n_blocks // 31)
+            t["bound"] = bound(live * (accel.n_blocks * CULL_SLAB_OPS + CULL_RAY_OPS), 0,
+                               n_rays * (24 + 1) + 4 * words + 24 * accel.n_blocks)
+            t["live"] = live
+            t["nonzero"] = int((call() != 0).sum())
+            timed[tag] = t
+    return {"cases": cases, "notes": notes, "timed": timed}
+
+
 def check_modes(dev, run=MODES_RUN) -> dict:
     """Phase 6. Returns ``{mode: (seconds, traced rays, search_brute
     launches)}``; raises on a broken identity."""
@@ -2816,7 +2980,7 @@ def main() -> int:
         "search_range_kernel",
         "search_words_kernel", "range_items_kernel", "words_items_kernel",
         "unpack_keys_kernel", "search_mxu_kernel", "mxu_pack_kernel",
-        "mxu_items_kernel", "shade_kernel")}
+        "mxu_items_kernel", "shade_kernel", "cull_words_kernel")}
     spilled = [k for k in NO_SPILLS if re.search(r"[1-9]\d* bytes spill", reports[k])]
     if spilled:
         raise AssertionError(f"ptxas spills in {spilled}: {reports}")
@@ -2930,11 +3094,33 @@ def main() -> int:
           f"({st['bound'][1]}, {st['bytes']} bytes; device at "
           f"{st['bound'][0] / st['profiler']:.1%}); ptxas: {shade_out['report']}")
 
+    # 3g. The culling prelude's kernel vs the torch prelude.
+    t = time.time()
+    cull = check_cull_kernel(dev, np.random.default_rng(CULL_SEED))
+    phase("kernel", t, f"cull_words == the torch prelude bitwise through every "
+          f"word route's entry on {cull['cases']} cases (R {CULL_RAYS}; coherent "
+          f"and secondary-like, {DEAD:.0%} dead, alive=None, special values): "
+          + "; ".join(cull["notes"]) + f"; {CULL_TIMED}: " + "; ".join(
+              f"{tag}: events {v['ms']:.4f} ms (host {v['host']:.4f} ms a call, "
+              f"device {v['profiler']:.4f} ms a launch by torch.profiler), torch "
+              f"prelude {v['plain']:.4f} ms (host {v['plain host']:.4f} ms a call), "
+              f"bound {v['bound'][0]:.5f} ms ({v['bound'][1]}, {v['live']} live "
+              f"rays; device at {v['bound'][0] / v['profiler']:.1%}), "
+              f"{v['nonzero']} nonzero words"
+              for tag, v in cull["timed"].items()))
+
     # 4. Main path: the CLI in default mode and under the knobs that pick a
     # kernel, then the two tools, on the card. Every kernel's count is set
-    # to 0 just before each run and read just after it.
+    # to 0 just before each run and read just after it. Every search of a
+    # word route (bitmask, packed, words, mxu) computes its words with one
+    # launch of the culling kernel, and no other search does.
+    from raytracingc_tpu_torch.ops import culling
+    from raytracingc_tpu_torch.utils.profiling import COUNTS
+
     kernels = kernel_counters()
     total_launches = dict.fromkeys(kernels, 0)
+    total_launches["cull_words"] = 0
+    word_routes = ("search_bitmask", "search_packed", "search_words", "search_mxu")
     traced, means = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, extra, shape, expect, env, twin, exact in MAIN_RUNS:
@@ -2942,6 +3128,9 @@ def main() -> int:
             out = os.path.join(tmp, f"main_{label[0]}.bmp")
             for fn in kernels.values():
                 fn.launches = 0
+            culling.cull_words.launches = 0
+            cull0 = {k: COUNTS[k] for k in ("search.cull_packets",
+                                            "cull.kernel_packets", "cull.torch_packets")}
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf), knobs_set(env):
                 rc = cli_main(["--device", "cuda", "--triangles", BOX_SCENE,
@@ -2950,6 +3139,21 @@ def main() -> int:
             launched = {k: fn.launches for k, fn in kernels.items()}
             for k, v in launched.items():
                 total_launches[k] += v
+            culled = {k: COUNTS[k] - v for k, v in cull0.items()}
+            cull_launches = culling.cull_words.launches
+            total_launches["cull_words"] += cull_launches
+            packets = culled["search.cull_packets"]
+            if expect in word_routes:
+                want = (launched[expect], packets, 0)
+            else:  # the range route keeps the torch prelude; brute culls nothing
+                want = (0, 0, packets)
+            got = (cull_launches, culled["cull.kernel_packets"],
+                   culled["cull.torch_packets"])
+            if got != want or (expect in word_routes and packets == 0):
+                raise AssertionError(
+                    f"{label}: cull_words launches, cull.kernel_packets, "
+                    f"cull.torch_packets {got}, expected {want} "
+                    f"(search.cull_packets {packets})")
             if rc != 0:
                 raise AssertionError(f"{label}: cli exit code {rc}\n{log}")
             prof = re.search(r"render=([0-9.]+)s rays=(\d+)", log)
@@ -2994,7 +3198,8 @@ def main() -> int:
                         f"{float((img != other).mean()):.4%} of bytes differ")
             phase("main", t, f"{label}: render {render_s:.3f}s, {rays} rays, "
                   f"{rays / render_s:.4g} rays/s, {launched[expect]} {expect} "
-                  f"launches, {launched['shade_kernel']} shade_kernel launches, mean "
+                  f"launches, {launched['shade_kernel']} shade_kernel launches, "
+                  f"{cull_launches} cull_words launches ({packets} packets), mean "
                   f"byte {mean:.2f}, BMP sha256 {digest}{same}")
 
         # Runs (r)-(u): progressive rendering and its resume, the heatmap,
@@ -3304,6 +3509,11 @@ def main() -> int:
          bound(smem_work[0], 0, smem_work[1]), 0.0),
         ("shade_kernel", "none (XLA's fusions of the integrator's per-lane ops)",
          (st["ms"], st["plain"]), st["bound"], 0.0),
+        ("cull_words", "none (the XLA-side prelude, " + tpu.format(1692)
+         + " _slab_any_hit and its callers)",
+         (cull["timed"][f"primary R={CULL_TIMED_RAYS[0]}"]["ms"],
+          cull["timed"][f"primary R={CULL_TIMED_RAYS[0]}"]["plain"]),
+         cull["timed"][f"primary R={CULL_TIMED_RAYS[0]}"]["bound"], 0.0),
     ]
     phase("total", t0, "chip_smoke.py up to the kernel line")
     print(smi)

@@ -70,6 +70,7 @@ _SIGNATURES = {
                           _INT),
     "rtc_shade_open": ([_UINT, _VOID_P, _VOID_P, _UINT] + [_VOID_P] * 4 + [_INT]
                        + [_VOID_P] * 4, _INT),
+    "rtc_cull_words": ([_VOID_P] * 5 + [_INT] * 2 + [_VOID_P] * 2, _INT),
     "rtc_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -12,6 +12,13 @@ some live lane of the packet passes the slab test of a block's (or a
 granule's union) AABB. The results are integers computed with the JAX
 package's op order, so they equal its own bit for bit.
 
+The word preludes also run as one hand-written CUDA kernel,
+``csrc/cull_words.cu`` (:func:`cull_words`, its plain version
+:func:`cull_words_reference`): the same words from the rays as they are and
+a list of boxes, bit for bit. ``ops/search.py`` takes it for every word
+route on a card through the ``kernel_*`` entries below (the route's boxes,
+then the kernel); the torch preludes serve CPU tensors and the range route.
+
 Memory: a slab test of C packets against G boxes makes ``(C, 8, G, 3)``
 float32 temporaries, so the boxes are tested in word groups sized to
 :data:`SLAB_ELEMS_BUDGET` elements (the JAX package bounds the same with
@@ -25,6 +32,7 @@ import os
 import torch
 
 from raytracingc_tpu_torch.ops.accel import PAD_ORIG_IDX, TriangleAccel
+from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 
 RAY_SUBLANES = 8  # rays per culling packet
 BITS_PER_WORD = 31  # bit 31 is never set: the words stay non-negative int32
@@ -142,7 +150,11 @@ def program_union_words(o_p, d_p, a_p, accel: TriangleAccel):
     128 packets (1,024 rays) of program ``g``, the missing packets of the
     last program counting as dead; ``flags[g]`` is 1 iff a word is nonzero.
     """
-    masks = packet_block_masks(o_p, d_p, a_p, accel)
+    return program_union(packet_block_masks(o_p, d_p, a_p, accel))
+
+
+def program_union(masks):
+    """:func:`program_union_words` of the packet words ``masks [P, W]``."""
     pad = round_up(masks.shape[0], PACKETS_PER_PROGRAM) - masks.shape[0]
     words = torch.nn.functional.pad(masks, (0, 0, 0, pad)).reshape(
         -1, PACKETS_PER_PROGRAM, masks.shape[1])
@@ -179,6 +191,15 @@ def packet_block_ranges(o_p, d_p, a_p, accel: TriangleAccel):
     return first, last
 
 
+def _one_word(blocks_per_tile: int, granule: int) -> None:
+    """Raise unless ``granule`` leaves at most 31 bits per tile."""
+    if -(-blocks_per_tile // granule) > BITS_PER_WORD:
+        raise ValueError(
+            f"granule={granule}: {blocks_per_tile} blocks per tile need more "
+            f"than {BITS_PER_WORD} bits; expected granule >= "
+            f"{-(-blocks_per_tile // BITS_PER_WORD)}")
+
+
 def packet_tile_words(o_p, d_p, a_p, accel: TriangleAccel, n_tiles: int,
                       blocks_per_tile: int, granule: int):
     """Per-(packet, tile) word of the words kernel: ``[C, n_tiles]`` int32.
@@ -189,11 +210,7 @@ def packet_tile_words(o_p, d_p, a_p, accel: TriangleAccel, n_tiles: int,
     :func:`packet_tile_words_multi`, so ``granule`` must leave at most 31
     bits per tile (the words routes use ``ceil(blocks_per_tile / 31)``).
     """
-    if -(-blocks_per_tile // granule) > BITS_PER_WORD:
-        raise ValueError(
-            f"granule={granule}: {blocks_per_tile} blocks per tile need more "
-            f"than {BITS_PER_WORD} bits; expected granule >= "
-            f"{-(-blocks_per_tile // BITS_PER_WORD)}")
+    _one_word(blocks_per_tile, granule)
     return packet_tile_words_multi(o_p, d_p, a_p, accel, n_tiles,
                                    blocks_per_tile, granule)[..., 0]
 
@@ -211,10 +228,23 @@ def packet_tile_words_multi(o_p, d_p, a_p, accel: TriangleAccel,
     ``W = stream_words_per_pair(blocks_per_tile, granule)``; bit ``j`` of
     word ``w`` of tile ``t`` covers the tile-local blocks
     ``[(w * 31 + j) * granule, ... + granule)`` and is set iff some live
-    lane passes the slab test of their union box. Granule 1 is exact
-    per-block culling; at any granule the set is a superset of the hit
-    blocks, so the search result is the same.
+    lane passes the slab test of their union box (:func:`tile_boxes`).
+    Granule 1 is exact per-block culling; at any granule the set is a
+    superset of the hit blocks, so the search result is the same.
     """
+    lo, hi, n_words = tile_boxes(accel, n_tiles, blocks_per_tile, granule)
+    words = _box_words(lo.reshape(n_tiles * n_words, BITS_PER_WORD, 3),
+                       hi.reshape(n_tiles * n_words, BITS_PER_WORD, 3),
+                       o_p, d_p, a_p)
+    return words.reshape(-1, n_tiles, n_words)
+
+
+def tile_boxes(accel: TriangleAccel, n_tiles: int, blocks_per_tile: int,
+               granule: int):
+    """The boxes of :func:`packet_tile_words_multi`'s bits: ``(lo, hi
+    [n_tiles * W * 31, 3], W)``, box ``(t * W + w) * 31 + j`` the union box
+    of bit ``j`` of word ``w`` of tile ``t``; padding slots are inverted
+    boxes, which pass no slab test."""
     bits_per_tile = -(-blocks_per_tile // granule)
     n_words = -(-bits_per_tile // BITS_PER_WORD)
     lo, hi = _pad_boxes(accel.aabb_lo, accel.aabb_hi,
@@ -227,10 +257,144 @@ def packet_tile_words_multi(o_p, d_p, a_p, accel: TriangleAccel,
     lo = lo.reshape(n_tiles, bits_per_tile, granule, 3).amin(dim=2)
     hi = hi.reshape(n_tiles, bits_per_tile, granule, 3).amax(dim=2)
     lo, hi = _pad_boxes(lo, hi, n_words * BITS_PER_WORD, 1)
-    words = _box_words(lo.reshape(n_tiles * n_words, BITS_PER_WORD, 3),
-                       hi.reshape(n_tiles * n_words, BITS_PER_WORD, 3),
-                       o_p, d_p, a_p)
-    return words.reshape(-1, n_tiles, n_words)
+    return lo.reshape(-1, 3), hi.reshape(-1, 3), n_words
+
+
+# ---------------------------------------------------------------------------
+# The kernel (csrc/cull_words.cu), its plain version and the routes' entries.
+
+
+def cull_words_reference(o, d, alive, lo, hi):
+    """Plain version of :func:`cull_words`, lane by lane the kernel's
+    arithmetic: each live lane's reciprocal direction (:func:`_inv_dir`),
+    its six slab values per box, ``tmin`` the max over the axes of their
+    minimums and ``tmax`` the min of their maximums (torch's minimum and
+    maximum keep a NaN, as the kernel's ``min.NaN`` and ``max.NaN`` do),
+    the box hit iff ``tmax >= max(tmin, 0)``; a packet's bit set iff a live
+    lane hits a box with ``lo <= hi`` on every axis. Missing tail lanes are
+    dead; boxes past ``N`` set no bit. Tested in groups of whole words to
+    bound memory, as :func:`_box_words`."""
+    r, n = o.shape[0], lo.shape[0]
+    c, n_words = -(-r // RAY_SUBLANES), -(-n // BITS_PER_WORD)
+    dev = o.device
+    pad = c * RAY_SUBLANES - r
+    live = (torch.ones((r,), dtype=torch.bool, device=dev)
+            if alive is None else alive)
+    live = torch.nn.functional.pad(live, (0, pad)).reshape(c, RAY_SUBLANES, 1)
+    o_l = torch.nn.functional.pad(o, (0, 0, 0, pad)).reshape(c, RAY_SUBLANES, 1, 3)
+    inv = torch.nn.functional.pad(_inv_dir(d), (0, 0, 0, pad)).reshape(
+        c, RAY_SUBLANES, 1, 3)
+    valid = (lo <= hi).all(dim=1)
+    bits = torch.ones((), dtype=torch.int32, device=dev) << torch.arange(
+        BITS_PER_WORD, dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out = torch.zeros((c, n_words), dtype=torch.int32, device=dev)
+    step = BITS_PER_WORD * max(1, SLAB_ELEMS_BUDGET
+                               // max(c * RAY_SUBLANES * BITS_PER_WORD * 3, 1))
+    for b0 in range(0, n, step):
+        g = min(step, n - b0)
+        t0 = (lo[b0:b0 + g] - o_l) * inv  # [C, 8, g, 3]
+        t1 = (hi[b0:b0 + g] - o_l) * inv
+        x, y, z = (torch.minimum(t0[..., k], t1[..., k]) for k in range(3))
+        tmin = torch.maximum(torch.maximum(x, y), z)
+        x, y, z = (torch.maximum(t0[..., k], t1[..., k]) for k in range(3))
+        tmax = torch.minimum(torch.minimum(x, y), z)
+        hit = ((tmax >= torch.maximum(tmin, zero)) & live).any(dim=1)
+        hit = hit & valid[b0:b0 + g]  # [C, g]
+        g31 = round_up(g, BITS_PER_WORD)
+        hit = torch.nn.functional.pad(hit, (0, g31 - g)).reshape(
+            c, g31 // BITS_PER_WORD, BITS_PER_WORD)
+        w0 = b0 // BITS_PER_WORD
+        out[:, w0:w0 + g31 // BITS_PER_WORD] = torch.where(
+            hit, bits, 0).sum(dim=2, dtype=torch.int32)
+    return out
+
+
+def _check_cull_args(o, d, alive, lo, hi) -> None:
+    """Raise ``ValueError`` on what the kernel does not take: float32 ``o,
+    d [R, 3]``, ``lo, hi [N, 3]``, bool ``alive [R]`` or None, contiguous,
+    on one device, ``R < 2**31``."""
+    r, n = o.shape[0], lo.shape[0]
+    want = [("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
+            ("lo", lo, torch.float32, (n, 3)), ("hi", hi, torch.float32, (n, 3))]
+    if alive is not None:
+        want.append(("alive", alive, torch.bool, (r,)))
+    for name, x, dtype, shape in want:
+        if x.dtype != dtype or x.shape != shape:
+            raise ValueError(f"cull_words: {name} is {x.dtype} {tuple(x.shape)}, "
+                             f"expected {dtype} {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"cull_words: {name} is not contiguous")
+        if x.device != o.device:
+            raise ValueError(f"cull_words: {name} is on {x.device}, o on {o.device}")
+    if r >= 2**31:
+        raise ValueError(f"cull_words: {r} rays; the kernel counts rays in int32")
+
+
+@no_tangent
+def cull_words(o, d, alive, lo, hi):
+    """The packet words of rays ``o, d [R, 3]`` (``alive [R]`` or None)
+    against boxes ``lo, hi [N, 3]``: ``[ceil(R / 8), ceil(N / 31)]`` int32,
+    bit ``j`` of word ``w`` of packet ``p`` set iff box ``w * 31 + j`` passes
+    the slab test for some live lane among rays ``8p .. 8p + 7``; equal to
+    :func:`_box_words` of :func:`packets` bit for bit.
+
+    A CPU tensor runs :func:`cull_words_reference`. A CUDA tensor launches
+    ``csrc/cull_words.cu`` on the current stream (building the library on
+    first use), with no sync, and counts the launch in
+    ``cull_words.launches``; any other device raises."""
+    _check_cull_args(o, d, alive, lo, hi)
+    if o.device.type == "cpu":
+        return cull_words_reference(o, d, alive, lo, hi)
+    if o.device.type != "cuda":
+        raise RuntimeError(f"cull_words: no kernel for device {o.device}")
+
+    from raytracingc_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    r, n = o.shape[0], lo.shape[0]
+    words = torch.empty((-(-r // RAY_SUBLANES), -(-n // BITS_PER_WORD)),
+                        dtype=torch.int32, device=o.device)
+    args = (o.data_ptr(), d.data_ptr(), None if alive is None else alive.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), r, n, words.data_ptr())
+    index = o.device.index
+    if index == torch.cuda.current_device():
+        code = lib.rtc_cull_words(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = lib.rtc_cull_words(*args, torch._C._cuda_getCurrentRawStream(index))
+    _build.check(code, "cull_words launch")
+    cull_words.launches += 1
+    return words
+
+
+cull_words.launches = 0
+
+
+def kernel_block_masks(o, d, alive, accel: TriangleAccel):
+    """:func:`packet_block_masks` of the rays by :func:`cull_words`, on the
+    accel's block boxes as they are."""
+    return cull_words(o, d, alive, accel.aabb_lo, accel.aabb_hi)
+
+
+def kernel_union_words(o, d, alive, accel: TriangleAccel):
+    """:func:`program_union_words` of the rays by :func:`cull_words`."""
+    return program_union(kernel_block_masks(o, d, alive, accel))
+
+
+def kernel_tile_words_multi(o, d, alive, accel: TriangleAccel, n_tiles: int,
+                            blocks_per_tile: int, granule: int):
+    """:func:`packet_tile_words_multi` of the rays by :func:`cull_words`."""
+    lo, hi, n_words = tile_boxes(accel, n_tiles, blocks_per_tile, granule)
+    return cull_words(o, d, alive, lo, hi).reshape(-1, n_tiles, n_words)
+
+
+def kernel_tile_words(o, d, alive, accel: TriangleAccel, n_tiles: int,
+                      blocks_per_tile: int, granule: int):
+    """:func:`packet_tile_words` of the rays by :func:`cull_words`."""
+    _one_word(blocks_per_tile, granule)
+    return kernel_tile_words_multi(o, d, alive, accel, n_tiles,
+                                   blocks_per_tile, granule)[..., 0]
 
 
 def granule_env() -> int | None:
