@@ -6,7 +6,8 @@ Builds the hand-written CUDA kernels from this checkout's sources (one nvcc
 per source, in parallel), holds each against its plain PyTorch version on
 the card (bit for bit; the tensor-core MXU kernel within its contract; the
 shading kernel's four entries also through a whole 1080p frame on each of
-its two routes; the culling kernel against the torch prelude),
+its two routes; the culling kernel through each word route's entry against
+the same entry on a CPU copy of its inputs, its plain version),
 drives the renderer's main path through the CLI (the user's entry point) at
 every kernel's scene size and under every search knob that picks a kernel,
 then its progressive (checkpointed, resumed), bounce-heatmap, trace and
@@ -391,8 +392,9 @@ SHADE_FRAME = dict(width=1920, height=1080, spp=2, max_bounce=8)
 SHADE_LANE_BYTES = 4 * 12 + 8 + 6 + 4 * 12 + 8 + 1
 PIXEL_RTOL = PIXEL_ATOL = 1e-4
 # Phase 3g: the culling prelude's kernel (csrc/cull_words.cu, through each
-# word route's entry, culling.kernel_*) against the torch prelude
-# (culling.packets, then the route's slab tests) bit for bit, at R in
+# word route's entry: culling.packet_block_masks, packet_tile_words[_multi],
+# program_union_words) against the same entry on CPU copies of its inputs
+# (the kernel's plain version, culling.cull_words_reference) bit for bit, at R in
 # CULL_RAYS: (label, scene, live triangles, knobs); the scene is the SPD
 # tetra of the benchmark, a seeded soup or box_scene tessellated to that
 # count. Each case's rays: coherent and secondary-like packets with a share
@@ -1078,6 +1080,7 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         tris, n, (lo, hi) = packet_scene(rng, kind, n_live)
         tris = tris.to(dev)
         accel = build_accel(tris, n)
+        accel_cpu = accel.to("cpu")
         with knobs_set(env):
             way = search.route(n, accel.n_blocks, search.Knobs.read())
         if way.kernel != expect or not label.startswith(way.tpu + " "):
@@ -1101,31 +1104,32 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
         notes = []
         for n_rays, (suffix, make) in ((r, s) for r in rays for s in ray_sets):
             o, d, alive = (torch.from_numpy(x).to(dev) for x in make(n_rays))
-            o_p, d_p, a_p = culling.packets(o, d, alive)
+            where = f"{label}{suffix} R={n_rays}"
             bpt = way.tile // BLOCK
+            tiles = (way.n_tiles, bpt, way.granule)
             if way.kernel == "bitmask":
-                words = culling.packet_block_masks(o_p, d_p, a_p, accel)
+                words = card_words(where, culling.packet_block_masks, o, d, alive,
+                                   accel, accel_cpu)
                 args = (o, d, words, plane, oi)
                 table = bitmask_table(words, accel.n_blocks)
             elif way.kernel == "packed":
-                words = culling.packet_tile_words_multi(
-                    o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
+                words = card_words(where, culling.packet_tile_words_multi, o, d,
+                                   alive, accel, accel_cpu, *tiles)
                 args = (o, d, words, plane, oi, way.tile, way.granule)
                 table = packed_table(words, bpt, way.granule)
             elif way.kernel == "words":
-                words = culling.packet_tile_words(
-                    o_p, d_p, a_p, accel, way.n_tiles, bpt, way.granule)
+                words = card_words(where, culling.packet_tile_words, o, d, alive,
+                                   accel, accel_cpu, *tiles)
                 args = (o, d, words, plane, oi, way.tile, way.granule)
                 table = packed_table(words[..., None], bpt, way.granule)
             else:
-                first, last = culling.packet_block_ranges(o_p, d_p, a_p, accel)
+                first, last = culling.packet_block_ranges(o, d, alive, accel)
                 args = (o, d, first, last, plane, oi)
                 table = range_table(first, last, plane.shape[1] // BLOCK)
             walked0 = (card_blocks(), COUNTS["search.bitmask_blocks"])
             dk, ik = kern(*args)
             dr, ir = plain(*args)
             torch.cuda.synchronize()
-            where = f"{label}{suffix} R={n_rays}"
             # search.bitmask_blocks: K2 adds its walked pairs on the card and
             # its plain version on the host, both the words' set bits; K3,
             # which shares the walk, passes no counter.
@@ -1186,7 +1190,8 @@ def check_packet_kernels(dev, rng, cases=PACKET_CASES, rays=PHASE3_RAYS):
                     int(table.sum()) * culling.RAY_SUBLANES * BLOCK,
                     n_bytes(*args[:-2 if way.kernel in ("packed", "words")
                                   else None], dk, ik))
-        phase("kernel", t, f"{label}: {name} == plain bitwise, live lanes == "
+        phase("kernel", t, f"{label}: words == their entry on a CPU copy bitwise; "
+              f"{name} == plain bitwise, live lanes == "
               f"brute scan (K1 at the ragged R, itself == the torch scan on "
               f"{BRUTE_TAIL + BRUTE_SAMPLE} of its rays); {way.kernel} ({way.tpu}) tile={way.tile} "
               f"n_tiles={way.n_tiles} granule={way.granule}; " + "; ".join(notes))
@@ -1467,11 +1472,10 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
         notes = [f"pack kernel == mxu_fragments bitwise in both precisions"]
         for n_rays, suffix, make in ray_sets:
             o, d, alive = (torch.from_numpy(x).to(dev) for x in make(n_rays))
-            o_p, d_p, a_p = culling.packets(o, d, alive)
-            words, flags = culling.program_union_words(o_p, d_p, a_p, accel)
+            words, flags = culling.program_union_words(o, d, alive, accel)
             blocks = int(bitmask_table(words, accel.n_blocks).sum())
             pk_blocks = int(bitmask_table(
-                culling.packet_block_masks(o_p, d_p, a_p, accel),
+                culling.packet_block_masks(o, d, alive, accel),
                 accel.n_blocks).sum())
             db, ib = search_brute_reference(o, d, brute_tri, n, alive)
             live = int(alive.sum())
@@ -1509,8 +1513,8 @@ def check_mxu_kernel(dev, rng, cases=MXU_CASES, rays=PHASE3_RAYS):
                 half = -(-(n_rays // 2) // 1024) * 1024
                 parts = []
                 for sl in (slice(0, half), slice(half, None)):
-                    w2, f2 = culling.program_union_words(
-                        *culling.packets(o[sl], d[sl], alive[sl]), accel)
+                    w2, f2 = culling.program_union_words(o[sl], d[sl], alive[sl],
+                                                         accel)
                     parts.append(search_mxu(o[sl], d[sl], w2, f2, coeffs, oi,
                                             prec, alive[sl]))
                 if not (torch.equal(torch.cat([p[1] for p in parts]), ik)
@@ -1594,9 +1598,8 @@ def check_union_kernel(dev, rng, cases=UNION_CASES, rays=PHASE3_RAYS):
         notes = []
         for n_rays, suffix, make in ray_sets:
             o, d, alive = (torch.from_numpy(x).to(dev) for x in make(n_rays))
-            o_p, d_p, a_p = culling.packets(o, d, alive)
-            words, flags = culling.program_union_words(o_p, d_p, a_p, accel)
-            pk_words = culling.packet_block_masks(o_p, d_p, a_p, accel)
+            pk_words = culling.packet_block_masks(o, d, alive, accel)
+            words, flags = culling.program_union(pk_words)
             args = (o, d, words, flags, plane, oi)
             dk, ik = search_union(*args)
             dr, ir = search_union_reference(*args)
@@ -1893,6 +1896,31 @@ def special_lanes(o, d):
     return o, d
 
 
+def card_words(where, entry, o, d, alive, accel, accel_cpu, *args):
+    """``entry(o, d, alive, accel, *args)``, a word route's culling entry, on
+    the card: one launch of cull_words, held bit for bit to the same entry on
+    CPU copies of its inputs (``accel_cpu``, the accel on the CPU), which is
+    the kernel's plain version. Returns the card's words (and union flags);
+    raises on any disagreement."""
+    import torch
+
+    from raytracingc_tpu_torch.ops import culling
+
+    launches = culling.cull_words.launches
+    got = entry(o, d, alive, accel, *args)
+    n = culling.cull_words.launches - launches
+    if n != 1:
+        raise AssertionError(f"{where}: {n} launches of cull_words, expected 1")
+    want = entry(o.cpu(), d.cpu(), None if alive is None else alive.cpu(),
+                 accel_cpu, *args)
+    for g, w in zip(*((x,) if torch.is_tensor(x) else x for x in (got, want))):
+        if g.shape != w.shape or not torch.equal(g.cpu(), w):
+            bad = int((g.cpu() != w).sum()) if g.shape == w.shape else -1
+            raise AssertionError(f"{where}: words differ from the plain version "
+                                 f"on a CPU copy ({bad} words)")
+    return got
+
+
 def check_cull_kernel(dev, rng) -> dict:
     """Phase 3g. Returns ``{"cases": n, "notes": [...], "timed": {label:
     split_times + plain, host and bound}}``; raises on any disagreement."""
@@ -1911,19 +1939,17 @@ def check_cull_kernel(dev, rng) -> dict:
         tris, n, (lo, hi) = cull_scene(rng, kind, n_live)
         tris = tris.to(dev)
         accel = build_accel(tris, n)
+        accel_cpu = accel.to("cpu")
         with knobs_set(env):
             way = search.route(n, accel.n_blocks, search.Knobs.read())
         if not label.startswith(way.tpu + " "):
             raise AssertionError(f"{label}: routed to {way}")
-        bpt = way.tile // BLOCK
-        tiles = (accel, way.n_tiles, bpt, way.granule)
-        kernel, prelude, args = {
-            "bitmask": (culling.kernel_block_masks, culling.packet_block_masks,
-                        (accel,)),
-            "mxu": (culling.kernel_union_words, culling.program_union_words, (accel,)),
-            "packed": (culling.kernel_tile_words_multi,
-                       culling.packet_tile_words_multi, tiles),
-            "words": (culling.kernel_tile_words, culling.packet_tile_words, tiles),
+        tiles = (way.n_tiles, way.tile // BLOCK, way.granule)
+        entry, args = {
+            "bitmask": (culling.packet_block_masks, ()),
+            "mxu": (culling.program_union_words, ()),
+            "packed": (culling.packet_tile_words_multi, tiles),
+            "words": (culling.packet_tile_words, tiles),
         }[way.kernel]
         nonzero = []
         for n_rays in CULL_RAYS:
@@ -1936,27 +1962,16 @@ def check_cull_kernel(dev, rng) -> dict:
                                        ("secondary", (so, sd, salive)),
                                        ("alive=None", (o, d, None)),
                                        ("special values", (po, pd, alive))):
-                launches = culling.cull_words.launches
-                got = kernel(ro, rd, ra, *args)
-                want = prelude(*culling.packets(ro, rd, ra), *args)
-                torch.cuda.synchronize()
-                if culling.cull_words.launches != launches + 1:
-                    raise AssertionError(f"{label} R={n_rays} {name}: "
-                                         f"{culling.cull_words.launches - launches} "
-                                         "launches of cull_words, expected 1")
-                got, want = (got, want) if way.kernel != "mxu" else (
-                    torch.cat([got[0], got[1][:, None]], 1),
-                    torch.cat([want[0], want[1][:, None]], 1))
-                if got.shape != want.shape or not torch.equal(got, want):
-                    bad = int((got != want).sum()) if got.shape == want.shape else -1
-                    raise AssertionError(f"{label} R={n_rays} {name}: words differ "
-                                         f"from the torch prelude ({bad} words)")
-                nonzero.append(int((want != 0).sum()))
+                got = card_words(f"{label} R={n_rays} {name}", entry, ro, rd, ra,
+                                 accel, accel_cpu, *args)
+                if way.kernel == "mxu":
+                    got = torch.cat([got[0], got[1][:, None]], 1)
+                nonzero.append(int((got != 0).sum()))
                 cases += 1
         if not all(nonzero[:2]):
             raise AssertionError(f"{label}: no culling bit set: {nonzero}")
         notes.append(f"{label} ({way.kernel}, {accel.n_blocks} blocks, words "
-                     f"{tuple(want.shape)}): nonzero words {nonzero}")
+                     f"{tuple(got.shape)}): nonzero words {nonzero}")
         if label != CULL_TIMED:
             continue
         cam = Camera.look_at(device=dev, **TETRA_CAMERA)
@@ -1971,11 +1986,11 @@ def check_cull_kernel(dev, rng) -> dict:
                 tag = f"secondary R={n_rays}"
                 ro, rd, ra = (torch.from_numpy(x).to(dev)
                               for x in secondary_rays(rng, n_rays, lo, hi))
-            call = lambda: culling.kernel_block_masks(ro, rd, ra, accel)
-            plain = lambda: culling.packet_block_masks(
-                *culling.packets(ro, rd, ra), accel)
+            call = lambda: culling.packet_block_masks(ro, rd, ra, accel)
+            plain = lambda: culling.cull_words_reference(ro, rd, ra, accel.aabb_lo,
+                                                         accel.aabb_hi)
             if not torch.equal(call(), plain()):
-                raise AssertionError(f"{label} {tag}: words differ from the torch prelude")
+                raise AssertionError(f"{label} {tag}: words differ from the plain version")
             t = split_times(call, "cull_words_kernel")
             t["plain"] = cuda_ms(plain, 20)
             torch.cuda.synchronize()
@@ -3094,16 +3109,18 @@ def main() -> int:
           f"({st['bound'][1]}, {st['bytes']} bytes; device at "
           f"{st['bound'][0] / st['profiler']:.1%}); ptxas: {shade_out['report']}")
 
-    # 3g. The culling prelude's kernel vs the torch prelude.
+    # 3g. The culling prelude's kernel vs its plain version.
     t = time.time()
     cull = check_cull_kernel(dev, np.random.default_rng(CULL_SEED))
-    phase("kernel", t, f"cull_words == the torch prelude bitwise through every "
-          f"word route's entry on {cull['cases']} cases (R {CULL_RAYS}; coherent "
+    phase("kernel", t, f"cull_words == its plain version (the entry on a CPU copy) "
+          f"bitwise through every word route's entry on {cull['cases']} cases "
+          f"(R {CULL_RAYS}; coherent "
           f"and secondary-like, {DEAD:.0%} dead, alive=None, special values): "
           + "; ".join(cull["notes"]) + f"; {CULL_TIMED}: " + "; ".join(
               f"{tag}: events {v['ms']:.4f} ms (host {v['host']:.4f} ms a call, "
-              f"device {v['profiler']:.4f} ms a launch by torch.profiler), torch "
-              f"prelude {v['plain']:.4f} ms (host {v['plain host']:.4f} ms a call), "
+              f"device {v['profiler']:.4f} ms a launch by torch.profiler), "
+              f"cull_words_reference {v['plain']:.4f} ms (host {v['plain host']:.4f} "
+              f"ms a call), "
               f"bound {v['bound'][0]:.5f} ms ({v['bound'][1]}, {v['live']} live "
               f"rays; device at {v['bound'][0] / v['profiler']:.1%}), "
               f"{v['nonzero']} nonzero words"
@@ -3129,8 +3146,7 @@ def main() -> int:
             for fn in kernels.values():
                 fn.launches = 0
             culling.cull_words.launches = 0
-            cull0 = {k: COUNTS[k] for k in ("search.cull_packets",
-                                            "cull.kernel_packets", "cull.torch_packets")}
+            packets0 = COUNTS["search.cull_packets"]
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf), knobs_set(env):
                 rc = cli_main(["--device", "cuda", "--triangles", BOX_SCENE,
@@ -3139,21 +3155,15 @@ def main() -> int:
             launched = {k: fn.launches for k, fn in kernels.items()}
             for k, v in launched.items():
                 total_launches[k] += v
-            culled = {k: COUNTS[k] - v for k, v in cull0.items()}
+            packets = COUNTS["search.cull_packets"] - packets0
             cull_launches = culling.cull_words.launches
             total_launches["cull_words"] += cull_launches
-            packets = culled["search.cull_packets"]
-            if expect in word_routes:
-                want = (launched[expect], packets, 0)
-            else:  # the range route keeps the torch prelude; brute culls nothing
-                want = (0, 0, packets)
-            got = (cull_launches, culled["cull.kernel_packets"],
-                   culled["cull.torch_packets"])
-            if got != want or (expect in word_routes and packets == 0):
+            # The range route's spans are torch slab tests; brute culls nothing.
+            want = launched[expect] if expect in word_routes else 0
+            if cull_launches != want or (expect in word_routes and packets == 0):
                 raise AssertionError(
-                    f"{label}: cull_words launches, cull.kernel_packets, "
-                    f"cull.torch_packets {got}, expected {want} "
-                    f"(search.cull_packets {packets})")
+                    f"{label}: {cull_launches} cull_words launches, expected "
+                    f"{want} (search.cull_packets {packets})")
             if rc != 0:
                 raise AssertionError(f"{label}: cli exit code {rc}\n{log}")
             prof = re.search(r"render=([0-9.]+)s rays=(\d+)", log)

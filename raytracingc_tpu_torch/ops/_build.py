@@ -12,11 +12,13 @@ half-written library. :func:`hashed_library`, :func:`build_shared` and
 scene loader's too).
 
 Nothing here runs on import: the library is built on the first kernel launch
-on a CUDA device (or by :func:`load_library`), never on the CPU.
+on a CUDA device (or by :func:`load_library`), never on the CPU. Every launch
+and grid query reaches its card through :func:`card`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +27,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
@@ -188,6 +192,22 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         _lib = bind(build(), _SIGNATURES)
     return _lib
+
+
+@contextlib.contextmanager
+def card(device):
+    """``with card(x.device) as (lib, stream):`` the kernel library and the
+    raw handle of torch's current stream on ``device``'s card (a
+    ``torch.device`` or its name; no index means the current card), for the
+    launches and grid queries of one call. The device guard is entered only
+    when that card is not the current one."""
+    lib = load_library()
+    index, current = torch.device(device).index, torch.cuda.current_device()
+    if index is None or index == current:
+        yield lib, torch._C._cuda_getCurrentRawStream(current)
+    else:
+        with torch.cuda.device(index):
+            yield lib, torch._C._cuda_getCurrentRawStream(index)
 
 
 def ptxas_report(kernel: str, log: str | None = None) -> str:

@@ -5,22 +5,22 @@ Counterpart of the XLA-side preludes in
 ``packet_block_masks``, ``packet_block_ranges``, ``packet_tile_words``,
 ``packet_tile_words_multi``, ``stream_words_per_pair``, ``_stream_granule``,
 ``_stream_tile_pad``, and the MXU launcher's per-program OR of the packet
-words), as plain PyTorch ops on the rays' device. Rays are
-grouped in packets of :data:`RAY_SUBLANES` (ray ``r`` is in packet
-``r // 8``); a bit is set (or a block falls inside a packet's span) iff
-some live lane of the packet passes the slab test of a block's (or a
-granule's union) AABB. The results are integers computed with the JAX
-package's op order, so they equal its own bit for bit.
+words). Every entry takes the rays as they are, ``o, d [R, 3]`` and
+``alive [R]`` or None. Rays are grouped in packets of :data:`RAY_SUBLANES`
+(ray ``r`` is in packet ``r // 8``); a bit is set (or a block falls inside a
+packet's span) iff some live lane of the packet passes the slab test of a
+block's (or a granule's union) AABB. The results are integers equal to the
+JAX package's bit for bit.
 
-The word preludes also run as one hand-written CUDA kernel,
-``csrc/cull_words.cu`` (:func:`cull_words`, its plain version
-:func:`cull_words_reference`): the same words from the rays as they are and
-a list of boxes, bit for bit. ``ops/search.py`` takes it for every word
-route on a card through the ``kernel_*`` entries below (the route's boxes,
-then the kernel); the torch preludes serve CPU tensors and the range route.
+The word routes (bitmask, packed, words, mxu) take their route's boxes (the
+accel's blocks, or :func:`tile_boxes`) to :func:`cull_words`: on a card the
+hand-written CUDA kernel ``csrc/cull_words.cu``, on the CPU its plain
+version :func:`cull_words_reference`. The range route's spans
+(:func:`packet_block_ranges`) have no kernel: torch slab tests of the rays'
+:func:`packets` on either device.
 
 Memory: a slab test of C packets against G boxes makes ``(C, 8, G, 3)``
-float32 temporaries, so the boxes are tested in word groups sized to
+float32 temporaries, so the boxes are tested in groups sized to
 :data:`SLAB_ELEMS_BUDGET` elements (the JAX package bounds the same with
 ``lax.map`` over words or tiles).
 """
@@ -31,6 +31,7 @@ import os
 
 import torch
 
+from raytracingc_tpu_torch.ops import _build
 from raytracingc_tpu_torch.ops.accel import PAD_ORIG_IDX, TriangleAccel
 from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 
@@ -101,27 +102,6 @@ def _inv_dir(d_p):
     return 1.0 / torch.where(d_p.abs() < 1e-20, tiny, d_p)
 
 
-def _box_words(lo_w, hi_w, o_p, d_p, a_p):
-    """Words of boxes grouped 31 to a word: ``lo_w/hi_w [N, 31, 3]`` →
-    ``[C, N]`` int32, bit ``j`` of word ``n`` set iff box ``(n, j)`` passes
-    for some live lane. Tested in groups of words to bound memory."""
-    inv_p = _inv_dir(d_p)
-    c, n = o_p.shape[0], lo_w.shape[0]
-    bits = torch.ones((), dtype=torch.int32, device=o_p.device) << torch.arange(
-        BITS_PER_WORD, dtype=torch.int32, device=o_p.device)
-    zero = torch.zeros((), dtype=torch.int32, device=o_p.device)
-    per_word = c * RAY_SUBLANES * BITS_PER_WORD * 3
-    step = max(1, SLAB_ELEMS_BUDGET // max(per_word, 1))
-    out = [torch.zeros((c, 0), dtype=torch.int32, device=o_p.device)]
-    for w0 in range(0, n, step):
-        lo = lo_w[w0:w0 + step].reshape(-1, 3)
-        hi = hi_w[w0:w0 + step].reshape(-1, 3)
-        hit = slab_any_hit(lo, hi, o_p, inv_p, a_p).reshape(
-            c, lo.shape[0] // BITS_PER_WORD, BITS_PER_WORD)
-        out.append(torch.where(hit, bits, zero).sum(dim=2, dtype=torch.int32))
-    return torch.cat(out, dim=1)
-
-
 def _pad_boxes(lo, hi, n: int, dim: int):
     """Pad box bounds along ``dim`` to ``n`` with inverted boxes."""
     pad = [0, 0] * (lo.dim() - 1 - dim) + [0, n - lo.shape[dim]]
@@ -129,20 +109,17 @@ def _pad_boxes(lo, hi, n: int, dim: int):
             torch.nn.functional.pad(hi, pad, value=-_BOX_BIG))
 
 
-def packet_block_masks(o_p, d_p, a_p, accel: TriangleAccel):
+def packet_block_masks(o, d, alive, accel: TriangleAccel):
     """Per-packet hit words of the bitmask kernel: ``[C, n_words]`` int32.
 
     Bit ``j`` of word ``w`` is set iff block ``w * 31 + j`` passes the slab
     test for some live lane of the packet; ``n_words = ceil(n_blocks / 31)``.
+    :func:`cull_words` on the accel's block boxes as they are.
     """
-    n_words = -(-accel.n_blocks // BITS_PER_WORD)
-    lo, hi = _pad_boxes(accel.aabb_lo, accel.aabb_hi,
-                        n_words * BITS_PER_WORD, 0)
-    return _box_words(lo.reshape(n_words, BITS_PER_WORD, 3),
-                      hi.reshape(n_words, BITS_PER_WORD, 3), o_p, d_p, a_p)
+    return cull_words(o, d, alive, accel.aabb_lo, accel.aabb_hi)
 
 
-def program_union_words(o_p, d_p, a_p, accel: TriangleAccel):
+def program_union_words(o, d, alive, accel: TriangleAccel):
     """Per-program union words of the MXU and union-walk kernels:
     ``(words [G, n_words], flags [G])`` int32, ``G = ceil(P / 128)``.
 
@@ -150,7 +127,7 @@ def program_union_words(o_p, d_p, a_p, accel: TriangleAccel):
     128 packets (1,024 rays) of program ``g``, the missing packets of the
     last program counting as dead; ``flags[g]`` is 1 iff a word is nonzero.
     """
-    return program_union(packet_block_masks(o_p, d_p, a_p, accel))
+    return program_union(packet_block_masks(o, d, alive, accel))
 
 
 def program_union(masks):
@@ -165,7 +142,7 @@ def program_union(masks):
     return words, (words != 0).any(dim=1).to(torch.int32)
 
 
-def packet_block_ranges(o_p, d_p, a_p, accel: TriangleAccel):
+def packet_block_ranges(o, d, alive, accel: TriangleAccel):
     """Per-packet hitting-block span of the range kernel: ``(first [C],
     last [C])`` int32.
 
@@ -176,6 +153,7 @@ def packet_block_ranges(o_p, d_p, a_p, accel: TriangleAccel):
     :data:`SLAB_ELEMS_BUDGET`; a min or max over groups is the min or max
     over all blocks, so the grouping changes no bit.
     """
+    o_p, d_p, a_p = packets(o, d, alive)
     inv_p = _inv_dir(d_p)
     c, n = o_p.shape[0], accel.n_blocks
     dev = o_p.device
@@ -200,7 +178,7 @@ def _one_word(blocks_per_tile: int, granule: int) -> None:
             f"{-(-blocks_per_tile // BITS_PER_WORD)}")
 
 
-def packet_tile_words(o_p, d_p, a_p, accel: TriangleAccel, n_tiles: int,
+def packet_tile_words(o, d, alive, accel: TriangleAccel, n_tiles: int,
                       blocks_per_tile: int, granule: int):
     """Per-(packet, tile) word of the words kernel: ``[C, n_tiles]`` int32.
 
@@ -211,7 +189,7 @@ def packet_tile_words(o_p, d_p, a_p, accel: TriangleAccel, n_tiles: int,
     bits per tile (the words routes use ``ceil(blocks_per_tile / 31)``).
     """
     _one_word(blocks_per_tile, granule)
-    return packet_tile_words_multi(o_p, d_p, a_p, accel, n_tiles,
+    return packet_tile_words_multi(o, d, alive, accel, n_tiles,
                                    blocks_per_tile, granule)[..., 0]
 
 
@@ -221,7 +199,7 @@ def stream_words_per_pair(blocks_per_tile: int, granule: int) -> int:
     return -(-bits_per_tile // BITS_PER_WORD)
 
 
-def packet_tile_words_multi(o_p, d_p, a_p, accel: TriangleAccel,
+def packet_tile_words_multi(o, d, alive, accel: TriangleAccel,
                             n_tiles: int, blocks_per_tile: int, granule: int):
     """Per-(packet, tile) words of the packed kernel: ``[C, n_tiles, W]``.
 
@@ -233,10 +211,7 @@ def packet_tile_words_multi(o_p, d_p, a_p, accel: TriangleAccel,
     superset of the hit blocks, so the search result is the same.
     """
     lo, hi, n_words = tile_boxes(accel, n_tiles, blocks_per_tile, granule)
-    words = _box_words(lo.reshape(n_tiles * n_words, BITS_PER_WORD, 3),
-                       hi.reshape(n_tiles * n_words, BITS_PER_WORD, 3),
-                       o_p, d_p, a_p)
-    return words.reshape(-1, n_tiles, n_words)
+    return cull_words(o, d, alive, lo, hi).reshape(-1, n_tiles, n_words)
 
 
 def tile_boxes(accel: TriangleAccel, n_tiles: int, blocks_per_tile: int,
@@ -261,7 +236,7 @@ def tile_boxes(accel: TriangleAccel, n_tiles: int, blocks_per_tile: int,
 
 
 # ---------------------------------------------------------------------------
-# The kernel (csrc/cull_words.cu), its plain version and the routes' entries.
+# The kernel (csrc/cull_words.cu) and its plain version.
 
 
 def cull_words_reference(o, d, alive, lo, hi):
@@ -273,7 +248,7 @@ def cull_words_reference(o, d, alive, lo, hi):
     the box hit iff ``tmax >= max(tmin, 0)``; a packet's bit set iff a live
     lane hits a box with ``lo <= hi`` on every axis. Missing tail lanes are
     dead; boxes past ``N`` set no bit. Tested in groups of whole words to
-    bound memory, as :func:`_box_words`."""
+    bound memory."""
     r, n = o.shape[0], lo.shape[0]
     c, n_words = -(-r // RAY_SUBLANES), -(-n // BITS_PER_WORD)
     dev = o.device
@@ -336,8 +311,7 @@ def cull_words(o, d, alive, lo, hi):
     """The packet words of rays ``o, d [R, 3]`` (``alive [R]`` or None)
     against boxes ``lo, hi [N, 3]``: ``[ceil(R / 8), ceil(N / 31)]`` int32,
     bit ``j`` of word ``w`` of packet ``p`` set iff box ``w * 31 + j`` passes
-    the slab test for some live lane among rays ``8p .. 8p + 7``; equal to
-    :func:`_box_words` of :func:`packets` bit for bit.
+    the slab test for some live lane among rays ``8p .. 8p + 7``.
 
     A CPU tensor runs :func:`cull_words_reference`. A CUDA tensor launches
     ``csrc/cull_words.cu`` on the current stream (building the library on
@@ -349,52 +323,19 @@ def cull_words(o, d, alive, lo, hi):
     if o.device.type != "cuda":
         raise RuntimeError(f"cull_words: no kernel for device {o.device}")
 
-    from raytracingc_tpu_torch.ops import _build
-
-    lib = _build.load_library()
     r, n = o.shape[0], lo.shape[0]
     words = torch.empty((-(-r // RAY_SUBLANES), -(-n // BITS_PER_WORD)),
                         dtype=torch.int32, device=o.device)
-    args = (o.data_ptr(), d.data_ptr(), None if alive is None else alive.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), r, n, words.data_ptr())
-    index = o.device.index
-    if index == torch.cuda.current_device():
-        code = lib.rtc_cull_words(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            code = lib.rtc_cull_words(*args, torch._C._cuda_getCurrentRawStream(index))
+    with _build.card(o.device) as (lib, stream):
+        code = lib.rtc_cull_words(
+            o.data_ptr(), d.data_ptr(), None if alive is None else alive.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), r, n, words.data_ptr(), stream)
     _build.check(code, "cull_words launch")
     cull_words.launches += 1
     return words
 
 
 cull_words.launches = 0
-
-
-def kernel_block_masks(o, d, alive, accel: TriangleAccel):
-    """:func:`packet_block_masks` of the rays by :func:`cull_words`, on the
-    accel's block boxes as they are."""
-    return cull_words(o, d, alive, accel.aabb_lo, accel.aabb_hi)
-
-
-def kernel_union_words(o, d, alive, accel: TriangleAccel):
-    """:func:`program_union_words` of the rays by :func:`cull_words`."""
-    return program_union(kernel_block_masks(o, d, alive, accel))
-
-
-def kernel_tile_words_multi(o, d, alive, accel: TriangleAccel, n_tiles: int,
-                            blocks_per_tile: int, granule: int):
-    """:func:`packet_tile_words_multi` of the rays by :func:`cull_words`."""
-    lo, hi, n_words = tile_boxes(accel, n_tiles, blocks_per_tile, granule)
-    return cull_words(o, d, alive, lo, hi).reshape(-1, n_tiles, n_words)
-
-
-def kernel_tile_words(o, d, alive, accel: TriangleAccel, n_tiles: int,
-                      blocks_per_tile: int, granule: int):
-    """:func:`packet_tile_words` of the rays by :func:`cull_words`."""
-    _one_word(blocks_per_tile, granule)
-    return kernel_tile_words_multi(o, d, alive, accel, n_tiles,
-                                   blocks_per_tile, granule)[..., 0]
 
 
 def granule_env() -> int | None:

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracingc_tpu_torch.ops import _build
 from raytracingc_tpu_torch.ops.accel import BLOCK, PAD_ORIG_IDX
 from raytracingc_tpu_torch.ops.culling import BITS_PER_WORD, RAYS_PER_PROGRAM
 from raytracingc_tpu_torch.ops.no_tangent import no_tangent
@@ -428,10 +429,6 @@ def search_mxu(o, d, words, flags, coeffs, orig_idx, precision: str = "split3",
         raise ValueError("coeffs: the kernel reads t′ rows as float4, expected "
                          "a 16-byte aligned tensor")
 
-    import ctypes
-
-    from raytracingc_tpu_torch.ops import _build
-
     r = o.shape[0]
     n_blocks = orig_idx.shape[0] // BLOCK
     prec = PRECISIONS.index(precision)
@@ -441,14 +438,12 @@ def search_mxu(o, d, words, flags, coeffs, orig_idx, precision: str = "split3",
                            + 8 * (words.shape[0] + 1 + r),), dtype=torch.uint8,
                           device=o.device)
     out = torch.empty((2, r), dtype=torch.int32, device=o.device)
-    with torch.cuda.device(o.device):
-        code = _build.load_library().rtc_search_mxu(
+    with _build.card(o.device) as (lib, stream):
+        code = lib.rtc_search_mxu(
             o.data_ptr(), d.data_ptr(), None if alive is None else alive.data_ptr(),
             words.data_ptr(), flags.data_ptr(), coeffs.data_ptr(),
-            orig_idx.data_ptr(), ctypes.c_int(r), ctypes.c_int(words.shape[1]),
-            ctypes.c_int(n_blocks), ctypes.c_int(prec), scratch.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
+            orig_idx.data_ptr(), r, words.shape[1], n_blocks, prec,
+            scratch.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), stream)
     _build.check(code, "search_mxu launch")
     search_mxu.launches += 1
     return out[0].view(torch.float32), out[1]
@@ -458,19 +453,13 @@ def mxu_pack_cuda(coeffs, precision: str):
     """The CUDA pack kernel's fragment table of CUDA ``coeffs``, as
     :func:`mxu_fragments` shapes it (one launch; chip_smoke.py holds it to
     :func:`mxu_fragments` bit for bit)."""
-    import ctypes
-
-    from raytracingc_tpu_torch.ops import _build
-
     n_blocks = coeffs.shape[0] // ROWS_PER_BLOCK
     parts = PRECISIONS.index(precision) + 2
     frags = torch.empty((n_blocks * parts * FRAG_BYTES,), dtype=torch.uint8,
                         device=coeffs.device)
-    with torch.cuda.device(coeffs.device):
-        _build.check(_build.load_library().rtc_mxu_pack(
-            coeffs.data_ptr(), ctypes.c_int(n_blocks), ctypes.c_int(parts - 2),
-            frags.data_ptr(), torch.cuda.current_stream(coeffs.device).cuda_stream),
-            "mxu_pack launch")
+    with _build.card(coeffs.device) as (lib, stream):
+        _build.check(lib.rtc_mxu_pack(coeffs.data_ptr(), n_blocks, parts - 2,
+                                      frags.data_ptr(), stream), "mxu_pack launch")
     return frags.view(torch.int16).reshape(n_blocks, FRAG_PLANES, parts,
                                            TRI_TILES, 32, 8)
 
@@ -480,13 +469,11 @@ def search_mxu_grid(device, precision: str) -> tuple[int, int]:
     ``precision`` on a CUDA ``device``."""
     import ctypes
 
-    from raytracingc_tpu_torch.ops import _build
-
     ctas, sms = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
-        _build.check(_build.load_library().rtc_search_mxu_grid(
-            ctypes.c_int(PRECISIONS.index(precision)), ctypes.byref(ctas),
-            ctypes.byref(sms)), "search_mxu grid")
+    with _build.card(device) as (lib, _):
+        _build.check(lib.rtc_search_mxu_grid(
+            PRECISIONS.index(precision), ctypes.byref(ctas), ctypes.byref(sms)),
+            "search_mxu grid")
     return ctas.value, sms.value
 
 

@@ -64,14 +64,12 @@ Every default is the JAX package's value, measured on a TPU and not yet
 re-measured on a GPU.
 
 The culling prelude of a packet or mxu route is one ``rtc.cull`` span; its
-packets are counted in ``search.cull_packets``. On a card, every word route
-(bitmask, packed, words, mxu) computes its words with one launch of the CUDA
-kernel ``culling.cull_words`` over the route's boxes (the accel's blocks, or
-the tile lists' union boxes built per call); on the CPU, and for the range
-route everywhere, the torch prelude runs (``culling.packets``, then the
-route's slab tests). Both give the same words bit for bit. The packets of
-each call are also counted by route, in ``cull.kernel_packets`` and
-``cull.torch_packets``.
+packets are counted in ``search.cull_packets``. Every word route (bitmask,
+packed, words, mxu) computes its words with one call of
+``culling.cull_words`` over the route's boxes (the accel's blocks, or the
+tile lists' union boxes built per call): the CUDA kernel on a card, its
+plain version on the CPU. The range route's spans are torch slab tests
+(``culling.packet_block_ranges``) on either device.
 """
 
 from __future__ import annotations
@@ -247,24 +245,13 @@ def route(n_live: int, n_blocks: int, knobs: Knobs) -> Route:
     return Route("range", "K4", t, 1)
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
-
-
-def _cull(o, d, alive, prelude, kernel, *args):
-    """The culling prelude: on a card ``kernel(o, d, alive, *args)`` (the
-    CUDA kernel's route), else ``prelude(*packets, *args)`` of the rays'
-    8-ray packets (``culling.packets``; the torch slab tests), also where
-    ``kernel`` is None (the range route). Counted in ``search.cull_packets``
-    and by route in ``cull.kernel_packets`` or ``cull.torch_packets``."""
-    n = -(-o.shape[0] // culling.RAY_SUBLANES)
-    COUNTS["search.cull_packets"] += n
+def _cull(o, d, alive, entry, *args):
+    """The culling prelude ``entry(o, d, alive, *args)`` (a ``culling``
+    entry), in the ``rtc.cull`` span, its packets counted in
+    ``search.cull_packets``."""
+    COUNTS["search.cull_packets"] += -(-o.shape[0] // culling.RAY_SUBLANES)
     with trace_annotation("rtc.cull"):
-        if kernel is not None and _on_card(o):
-            COUNTS["cull.kernel_packets"] += n
-            return kernel(o, d, alive, *args)
-        COUNTS["cull.torch_packets"] += n
-        return prelude(*culling.packets(o, d, alive), *args)
+        return entry(o, d, alive, *args)
 
 
 def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
@@ -316,8 +303,7 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
               "falling back to the packet kernel", file=sys.stderr)
 
     if way.kernel == "mxu":
-        words, flags = _cull(o, d, alive, culling.program_union_words,
-                             culling.kernel_union_words, accel)
+        words, flags = _cull(o, d, alive, culling.program_union_words, accel)
         coeffs = accel.mxu_coeffs
         if coeffs is None:
             coeffs = pack_coeffs_mxu(accel.triangles, accel.orig_idx)
@@ -329,20 +315,17 @@ def search_triangles(o, d, tris: Triangles, n_live: int, alive=None,
         plane = torch.cat([t.a.T, (t.b - t.a).T, (t.c - t.a).T, t.normal.T])
     plane = plane.contiguous()
     if way.kernel == "bitmask":
-        words = _cull(o, d, alive, culling.packet_block_masks,
-                      culling.kernel_block_masks, accel)
+        words = _cull(o, d, alive, culling.packet_block_masks, accel)
         return search_bitmask(o, d, words, plane, accel.orig_idx)
     plane, orig_idx = culling.stream_tile_pad(plane, accel.orig_idx, way.tile)
     bpt = way.tile // BLOCK
     if way.kernel == "packed":
-        words = _cull(o, d, alive, culling.packet_tile_words_multi,
-                      culling.kernel_tile_words_multi, accel, way.n_tiles, bpt,
-                      way.granule)
+        words = _cull(o, d, alive, culling.packet_tile_words_multi, accel,
+                      way.n_tiles, bpt, way.granule)
         return search_packed(o, d, words, plane, orig_idx, way.tile, way.granule)
     if way.kernel == "words":
-        words = _cull(o, d, alive, culling.packet_tile_words,
-                      culling.kernel_tile_words, accel, way.n_tiles, bpt,
-                      way.granule)
+        words = _cull(o, d, alive, culling.packet_tile_words, accel,
+                      way.n_tiles, bpt, way.granule)
         return search_words(o, d, words, plane, orig_idx, way.tile, way.granule)
-    first, last = _cull(o, d, alive, culling.packet_block_ranges, None, accel)
+    first, last = _cull(o, d, alive, culling.packet_block_ranges, accel)
     return search_range(o, d, first, last, plane, orig_idx)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracingc_tpu_torch.ops import _build
 from raytracingc_tpu_torch.ops.accel import BLOCK, PAD_ORIG_IDX
 from raytracingc_tpu_torch.ops.culling import BITS_PER_WORD, RAY_SUBLANES
 from raytracingc_tpu_torch.ops.no_tangent import no_tangent
@@ -165,23 +166,16 @@ def search_bitmask(o, d, words, plane, orig_idx):
     if o.device.type != "cuda":
         raise RuntimeError(f"search_bitmask: no kernel for device {o.device}")
 
-    import ctypes
-
-    from raytracingc_tpu_torch.ops import _build
-
-    lib = _build.load_library()
     dst = torch.empty((r,), dtype=torch.float32, device=o.device)
     idx = torch.empty((r,), dtype=torch.int32, device=o.device)
     blocks = _card_blocks.get(o.device.index)
     if blocks is None:
         blocks = _card_blocks[o.device.index] = torch.zeros(
             (1,), dtype=torch.int64, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
+    with _build.card(o.device) as (lib, stream):
         code = lib.rtc_search_bitmask(
             o.data_ptr(), d.data_ptr(), words.data_ptr(), plane.data_ptr(),
-            orig_idx.data_ptr(), ctypes.c_int(r), ctypes.c_int(words.shape[1]),
-            ctypes.c_int(plane.shape[1] // BLOCK),
+            orig_idx.data_ptr(), r, words.shape[1], plane.shape[1] // BLOCK,
             dst.data_ptr(), idx.data_ptr(), blocks.data_ptr(), stream,
         )
     _build.check(code, "search_bitmask launch")

@@ -184,20 +184,14 @@ def _launch(entry: str, o, d, alive, tables, n_live):
     """Launch ``entry`` (``rtc_search_brute`` or ``rtc_search_brute_tris``)
     on the current stream of ``o``'s card; count it in
     ``search_brute.launches``."""
-    lib = _build.load_library()
     r = o.shape[0]
     dst = torch.empty((r,), dtype=torch.float32, device=o.device)
     idx = torch.empty((r,), dtype=torch.int32, device=o.device)
     alive_ptr = None if alive is None else alive.data_ptr()  # bool is 1 byte
-    index = o.device.index
-    args = (o.data_ptr(), d.data_ptr(), alive_ptr,
-            *(x.data_ptr() for x in tables), r, n_live,
-            dst.data_ptr(), idx.data_ptr())
-    if index == torch.cuda.current_device():
-        code = getattr(lib, entry)(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            code = getattr(lib, entry)(*args, torch._C._cuda_getCurrentRawStream(index))
+    with _build.card(o.device) as (lib, stream):
+        code = getattr(lib, entry)(o.data_ptr(), d.data_ptr(), alive_ptr,
+                                   *(x.data_ptr() for x in tables), r, n_live,
+                                   dst.data_ptr(), idx.data_ptr(), stream)
     _build.check(code, "search_brute launch")
     search_brute.launches += 1
     return dst, idx

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracingc_tpu_torch.ops import _build
 from raytracingc_tpu_torch.ops.accel import BLOCK
 from raytracingc_tpu_torch.ops.culling import BITS_PER_WORD
 from raytracingc_tpu_torch.ops.no_tangent import no_tangent
@@ -84,22 +85,15 @@ def search_packed(o, d, words, plane, orig_idx, tile: int, granule: int):
     if o.device.type != "cuda":
         raise RuntimeError(f"search_packed: no kernel for device {o.device}")
 
-    import ctypes
-
-    from raytracingc_tpu_torch.ops import _build
-
-    lib = _build.load_library()
     r = o.shape[0]
     _, n_tiles, n_words = words.shape
     dst = torch.empty((r,), dtype=torch.float32, device=o.device)
     idx = torch.empty((r,), dtype=torch.int32, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
+    with _build.card(o.device) as (lib, stream):
         code = lib.rtc_search_packed(
             o.data_ptr(), d.data_ptr(), words.data_ptr(), plane.data_ptr(),
-            orig_idx.data_ptr(), ctypes.c_int(r), ctypes.c_int(n_tiles),
-            ctypes.c_int(n_words), ctypes.c_int(tile // BLOCK),
-            ctypes.c_int(granule), dst.data_ptr(), idx.data_ptr(), stream,
+            orig_idx.data_ptr(), r, n_tiles, n_words, tile // BLOCK, granule,
+            dst.data_ptr(), idx.data_ptr(), stream,
         )
     _build.check(code, "search_packed launch")
     search_packed.launches += 1

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracingc_tpu_torch.ops import _build
 from raytracingc_tpu_torch.ops.accel import BLOCK, PAD_ORIG_IDX
 from raytracingc_tpu_torch.ops.no_tangent import no_tangent
 from raytracingc_tpu_torch.ops.search_bitmask import (
@@ -132,19 +133,16 @@ def search_range(o, d, first, last, plane, orig_idx):
     if o.device.type != "cuda":
         raise RuntimeError(f"search_range: no kernel for device {o.device}")
 
-    import ctypes
-
-    n_blocks = ctypes.c_int(plane.shape[1] // BLOCK)
+    n_blocks = plane.shape[1] // BLOCK
     out = item_search(
         o, "search_range",
         lambda lib, items, counter, keys, stream: lib.rtc_range_items(
-            first.data_ptr(), last.data_ptr(), ctypes.c_int(r), n_blocks,
+            first.data_ptr(), last.data_ptr(), r, n_blocks,
             items.data_ptr(), counter.data_ptr(), keys.data_ptr(), stream),
         lambda lib, ends, counter, keys, stream: lib.rtc_search_range(
             o.data_ptr(), d.data_ptr(), first.data_ptr(), last.data_ptr(),
             ends.data_ptr(), plane.data_ptr(), orig_idx.data_ptr(),
-            ctypes.c_int(r), n_blocks, counter.data_ptr(), keys.data_ptr(),
-            stream))
+            r, n_blocks, counter.data_ptr(), keys.data_ptr(), stream))
     search_range.launches += 1
     return out
 
@@ -160,15 +158,11 @@ def item_search(o, what: str, count, search):
     counts' ``torch.cumsum`` (on the device: no host sync); ``search(lib,
     ends, counter, keys, stream)`` launches the search; the keys go through
     the CUDA unpack of :func:`unpack_keys_cuda`. Returns ``(dst, idx)``."""
-    from raytracingc_tpu_torch.ops import _build
-
-    lib = _build.load_library()
     r = o.shape[0]
     items = torch.empty((n_packets(r),), dtype=torch.int32, device=o.device)
     state = torch.empty((r + 1,), dtype=torch.int64, device=o.device)
     counter, keys = state[:1], state[1:]
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
+    with _build.card(o.device) as (lib, stream):
         _build.check(count(lib, items, counter, keys, stream), f"{what} items launch")
         ends = torch.cumsum(items, 0, dtype=torch.int64)
         _build.check(search(lib, ends, counter, keys, stream), f"{what} launch")
@@ -176,16 +170,12 @@ def item_search(o, what: str, count, search):
 
 
 def _unpack(lib, keys, alive, stream):
-    import ctypes
-
-    from raytracingc_tpu_torch.ops import _build
-
     n = keys.shape[0]
     dst = torch.empty((n,), dtype=torch.float32, device=keys.device)
     idx = torch.empty((n,), dtype=torch.int32, device=keys.device)
     _build.check(lib.rtc_unpack_keys(
         keys.data_ptr(), None if alive is None else alive.data_ptr(),
-        ctypes.c_int(n), dst.data_ptr(), idx.data_ptr(), stream), "unpack_keys launch")
+        n, dst.data_ptr(), idx.data_ptr(), stream), "unpack_keys launch")
     return dst, idx
 
 
@@ -194,11 +184,8 @@ def unpack_keys_cuda(keys, alive=None):
     unpack kernel (one launch): ``(dst, idx)``, the same bits; where
     ``alive`` (bool, optional) is False, ``(MISS_DST, -1)``, as the MXU
     search's unpack gives its dead lanes."""
-    from raytracingc_tpu_torch.ops import _build
-
-    with torch.cuda.device(keys.device):
-        return _unpack(_build.load_library(), keys, alive,
-                       torch.cuda.current_stream(keys.device).cuda_stream)
+    with _build.card(keys.device) as (lib, stream):
+        return _unpack(lib, keys, alive, stream)
 
 
 def search_grid(device, kernel: str) -> tuple[int, int]:
@@ -206,11 +193,8 @@ def search_grid(device, kernel: str) -> tuple[int, int]:
     ``kernel="range"`` or ``"words"`` search on a CUDA ``device``."""
     import ctypes
 
-    from raytracingc_tpu_torch.ops import _build
-
-    lib = _build.load_library()
     ctas, sms = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
+    with _build.card(device) as (lib, _):
         _build.check(getattr(lib, f"rtc_search_{kernel}_grid")(
             ctypes.byref(ctas), ctypes.byref(sms)), f"search_{kernel} grid")
     return ctas.value, sms.value

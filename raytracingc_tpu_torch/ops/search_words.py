@@ -177,11 +177,8 @@ def words_search_cuda(o, d, words, plane, orig_idx, blocks_per_tile: int,
     row_packets`` of ``words [rows, n_tiles]`` (``row_packets`` 1, or 128
     for the union walk) over the ``[12, n_cols]`` plane. The caller counts
     the launch."""
-    import ctypes
-
-    r = ctypes.c_int(o.shape[0])
-    dims = [ctypes.c_int(x) for x in (words.shape[1], blocks_per_tile, granule,
-                                      row_packets)]
+    r = o.shape[0]
+    dims = (words.shape[1], blocks_per_tile, granule, row_packets)
     return item_search(
         o, what,
         lambda lib, items, counter, keys, stream: lib.rtc_words_items(
@@ -189,7 +186,7 @@ def words_search_cuda(o, d, words, plane, orig_idx, blocks_per_tile: int,
             keys.data_ptr(), stream),
         lambda lib, ends, counter, keys, stream: lib.rtc_search_words(
             o.data_ptr(), d.data_ptr(), words.data_ptr(), ends.data_ptr(),
-            plane.data_ptr(), orig_idx.data_ptr(), r, ctypes.c_int(plane.shape[1]),
+            plane.data_ptr(), orig_idx.data_ptr(), r, plane.shape[1],
             *dims, counter.data_ptr(), keys.data_ptr(), stream))
 
 

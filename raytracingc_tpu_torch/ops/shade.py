@@ -227,14 +227,8 @@ def _call(entry: str, device, n: int, *args) -> None:
     of ``device``; with no lane nothing is launched or counted."""
     if n == 0:
         return
-    lib = _build.load_library()
-    fn = getattr(lib, f"rtc_shade_{entry}")
-    index = device.index
-    if index == torch.cuda.current_device():
-        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with _build.card(device) as (lib, stream):
+        code = getattr(lib, f"rtc_shade_{entry}")(*args, stream)
     _build.check(code, f"shade_kernel {entry} launch")
     shade_kernel.launches += 1
 

@@ -113,8 +113,9 @@ def granule_counts(accel: TriangleAccel, o, d, tile: int, granules,
     scanned = dict.fromkeys(granules, 0)
     active = pairs = 0
     for i in range(0, o.shape[0], chunk):
-        o_p, d_p, a_p = culling.packets(o[i:i + chunk], d[i:i + chunk])
-        words = culling.packet_tile_words(o_p, d_p, a_p, accel, n_tiles, bpt, g0)
+        o_c, d_c = o[i:i + chunk], d[i:i + chunk]
+        words = culling.packet_tile_words(o_c, d_c, None, accel, n_tiles, bpt, g0)
+        o_p, d_p, a_p = culling.packets(o_c, d_c)
         active += int((words != 0).sum())
         pairs += words.numel()
         for g, (lo, hi, run) in groups.items():

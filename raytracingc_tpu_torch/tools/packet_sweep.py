@@ -120,8 +120,8 @@ def words_inputs(scene, o, d, alive):
     """``(route, words, plane, orig_idx)`` of the dispatch's words route."""
     accel = scene.accel
     way = search.route(scene.n_triangles, accel.n_blocks, search.Knobs.read())
-    words = culling.packet_tile_words(*culling.packets(o, d, alive), accel,
-                                      way.n_tiles, way.tile // BLOCK, way.granule)
+    words = culling.packet_tile_words(o, d, alive, accel, way.n_tiles,
+                                      way.tile // BLOCK, way.granule)
     plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx, way.tile)
     return way, words, plane, oi
 
@@ -147,7 +147,7 @@ def case_calls(scene, o, d, alive):
                 lambda: search_words_reference(*args),
                 int(table.sum()) * culling.RAY_SUBLANES * BLOCK)
     if way.kernel == "range":
-        first, last = culling.packet_block_ranges(*culling.packets(o, d, alive), accel)
+        first, last = culling.packet_block_ranges(o, d, alive, accel)
         plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx,
                                             way.tile)
         args = (o, d, first, last, plane, oi)
@@ -173,7 +173,7 @@ def program_calls(scene, o, d, alive, union: bool):
     program-union kernels on these rays' program words: K9 (``union``) or
     K8 in both precisions."""
     accel = scene.accel
-    words, flags = culling.program_union_words(*culling.packets(o, d, alive), accel)
+    words, flags = culling.program_union_words(o, d, alive, accel)
     pairs = (int(bitmask_table(words, accel.n_blocks).sum())
              * culling.RAYS_PER_PROGRAM * BLOCK)
     if union:

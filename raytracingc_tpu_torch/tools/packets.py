@@ -77,22 +77,19 @@ def wide_span_rays(rng, n_rays: int, lo, hi, accel, every: int = 8):
 def packet_inputs(scene, o, d, alive):
     """``(route, words, plane, orig_idx)`` of the default dispatch's packet
     route for these rays on ``scene`` (a loaded scene with its accel), the
-    words computed as the dispatch computes them: by the culling kernel
-    (``culling.kernel_*``) on a card, by the torch prelude on the CPU."""
+    words computed by the route's culling entry, as the dispatch computes
+    them."""
     accel = scene.accel
     way = search.route(scene.n_triangles, accel.n_blocks, search.Knobs.read())
-    on_card = o.device.type == "cuda"
     if way.kernel == "bitmask":
-        words = (culling.kernel_block_masks(o, d, alive, accel) if on_card else
-                 culling.packet_block_masks(*culling.packets(o, d, alive), accel))
+        words = culling.packet_block_masks(o, d, alive, accel)
         return way, words, accel.packed_plane, accel.orig_idx
     if way.kernel != "packed":
         raise ValueError(f"{way}: not a packet route")
     plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx,
                                         way.tile)
-    tiles = (accel, way.n_tiles, way.tile // BLOCK, way.granule)
-    words = (culling.kernel_tile_words_multi(o, d, alive, *tiles) if on_card else
-             culling.packet_tile_words_multi(*culling.packets(o, d, alive), *tiles))
+    words = culling.packet_tile_words_multi(o, d, alive, accel, way.n_tiles,
+                                            way.tile // BLOCK, way.granule)
     return way, words, plane, oi
 
 

@@ -21,7 +21,6 @@ of an H100.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import functools
 import sys
 
@@ -103,18 +102,15 @@ def smem_probe(sm, x, *, launches: int = 1, set_limit: bool = False):
 
     from raytracingc_tpu_torch.ops import _build
 
-    lib = _build.load_library()
     out = torch.empty_like(x)
-    index = dev.index
-    with (torch.cuda.device(index) if index != torch.cuda.current_device()
-          else contextlib.nullcontext()):
-        if set_limit or index not in _limit_set:
+    with _build.card(dev) as (lib, stream):
+        if set_limit or dev.index not in _limit_set:
             _build.check(lib.rtc_smem_set_limit(optin_bytes(dev)),
                          "cudaFuncSetAttribute")
-            _limit_set.add(index)
+            _limit_set.add(dev.index)
         code = lib.rtc_smem_probe(sm.data_ptr(), x.data_ptr(), sm.shape[0],
                                   x.shape[0] // TILE_ROWS, out.data_ptr(), launches,
-                                  torch._C._cuda_getCurrentRawStream(index))
+                                  stream)
     _build.check(code, "smem_probe launch")
     smem_probe.launches += launches
     return out

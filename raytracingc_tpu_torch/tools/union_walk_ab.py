@@ -77,9 +77,8 @@ class Tables:
 
 def tables(scene, o, d, alive) -> Tables:
     accel = scene.accel
-    o_p, d_p, a_p = culling.packets(o, d, alive)
-    packet_words = culling.packet_block_masks(o_p, d_p, a_p, accel)
-    words, flags = culling.program_union_words(o_p, d_p, a_p, accel)
+    packet_words = culling.packet_block_masks(o, d, alive, accel)
+    words, flags = culling.program_union(packet_words)
     n_blocks = accel.n_blocks
     return Tables(
         packet_words, words, flags,

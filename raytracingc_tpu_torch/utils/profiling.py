@@ -41,13 +41,11 @@ _NO_SPAN = contextlib.nullcontext()
 # brute-force search (every lane given to it, times the live triangles), the
 # (packet, block) pairs the bitmask search walks (8 x 128 ray-triangle tests
 # each; here the plain version's, the kernel's on its card), the 8-ray
-# packets handed to any culling prelude (ceil(R / 8) a call), and again by
-# the prelude's route (ops/search.py: the CUDA kernel or the torch slab
-# tests), and the lanes of the resolve and shading calls (ops/shade.py) by
-# their route: the CUDA kernel or the torch composition.
+# packets handed to any culling prelude (ceil(R / 8) a call), and the lanes
+# of the resolve and shading calls (ops/shade.py) by their route: the CUDA
+# kernel or the torch composition.
 COUNTS = dict.fromkeys(("integrator.bounces", "integrator.lanes", "search.pairs",
                         "search.bitmask_blocks", "search.cull_packets",
-                        "cull.kernel_packets", "cull.torch_packets",
                         "shade.kernel_lanes", "shade.torch_lanes"), 0)
 
 

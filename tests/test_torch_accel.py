@@ -231,14 +231,13 @@ def test_packet_block_masks_match_jax(with_alive):
     pa = build_accel(port_tris(jtris), n)
     o, d, alive = rays(1001, seed=12)  # ragged: 125 packets + 1 ray
     alive = alive if with_alive else np.ones_like(alive)
-    o_p, d_p, a_p = culling.packets(torch.from_numpy(o), torch.from_numpy(d),
-                                    torch.from_numpy(alive) if with_alive else None)
-    for got, want in zip((o_p, d_p, a_p), _jax_packets(o, d, alive)):
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    ta = torch.from_numpy(alive) if with_alive else None
+    jp = _jax_packets(o, d, alive)
+    for got, want in zip(culling.packets(to, td, ta), jp):
         np.testing.assert_array_equal(got.numpy(), want)
-    want = np.asarray(ip.packet_block_masks(
-        jnp.asarray(o_p.numpy()), jnp.asarray(d_p.numpy()),
-        jnp.asarray(a_p.numpy()), ja))
-    got = culling.packet_block_masks(o_p, d_p, a_p, pa)
+    want = np.asarray(ip.packet_block_masks(*map(jnp.asarray, jp), ja))
+    got = culling.packet_block_masks(to, td, ta, pa)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != 0).mean() > 0.3  # the comparison is not vacuous
@@ -252,18 +251,15 @@ def test_packet_tile_words_match_jax(tile_blocks, n_tiles, granule):
     ja = j_build_accel(jtris, n)
     pa = build_accel(port_tris(jtris), n)
     o, d, alive = rays(999, seed=14)
-    o_p, d_p, a_p = culling.packets(torch.from_numpy(o), torch.from_numpy(d),
-                                    torch.from_numpy(alive))
     if granule == "auto":
         g = culling.stream_granule(tile_blocks, n_tiles)
         assert g == ip._stream_granule(tile_blocks, n_tiles)
     else:
         g = granule
     want = np.asarray(ip.packet_tile_words_multi(
-        jnp.asarray(o_p.numpy()), jnp.asarray(d_p.numpy()),
-        jnp.asarray(a_p.numpy()), ja, n_tiles, tile_blocks, g))
-    got = culling.packet_tile_words_multi(o_p, d_p, a_p, pa, n_tiles,
-                                          tile_blocks, g)
+        *map(jnp.asarray, _jax_packets(o, d, alive)), ja, n_tiles, tile_blocks, g))
+    got = culling.packet_tile_words_multi(*map(torch.from_numpy, (o, d, alive)), pa,
+                                          n_tiles, tile_blocks, g)
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.shape[2] == culling.stream_words_per_pair(tile_blocks, g)

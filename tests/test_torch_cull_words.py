@@ -1,21 +1,25 @@
 """The culling prelude's kernel (``csrc/cull_words.cu``): its plain version
 and its route, on the CPU.
 
+The oracle is the torch composition the word routes ran before the kernel
+was their one path, frozen here: ``_box_words`` (the slab tests of
+``culling.packets``, 31 boxes to a word) and the route entries built on it.
+
 * ``culling.cull_words_reference``, the kernel's per-lane arithmetic in
-  torch, equals the torch prelude (``_box_words`` of ``culling.packets``)
-  bit for bit on rays with a ragged tail packet, dead lanes and
-  ``alive=None``, zero, tiny and ``-0.0`` direction components, origins on
-  box faces and inside boxes, NaN and infinities in live lanes, and box
-  lists with inverted, NaN and infinite boxes, at 1 to 10 words.
-* Each word route's entry (``culling.kernel_*``: bitmask, packed, words,
-  mxu) gives that route's torch words (and union flags).
-* The route (``ops/search.py`` ``_cull``): a CPU tensor takes the torch
-  prelude and counts ``cull.torch_packets``; with the card's test stubbed,
-  every word route calls the wrapper once a search (its CPU branch: the
-  plain version, no launch), counts ``cull.kernel_packets`` and renders the
-  same bits, the SPD ``tetra`` scene included; the range route keeps the
-  torch prelude; ``jvp`` and ``vmap`` through a K2-route search still work.
-  The wrapper raises on a wrong dtype, shape, contiguity or device.
+  torch, equals the frozen ``_box_words`` bit for bit on rays with a ragged
+  tail packet, dead lanes and ``alive=None``, zero, tiny and ``-0.0``
+  direction components, origins on box faces and inside boxes, NaN and
+  infinities in live lanes, and box lists with inverted, NaN and infinite
+  boxes, at 1 to 10 words.
+* Each word route's entry (``culling.packet_block_masks``,
+  ``packet_tile_words[_multi]``, ``program_union_words``) gives the frozen
+  composition's words (and union flags).
+* The route (``ops/search.py`` ``_cull``): every word route calls
+  ``culling.cull_words`` once a search (on the CPU its plain version, no
+  launch) and renders the bits of the frozen composition, the SPD ``tetra``
+  scene included; the range route never calls it; ``jvp`` and ``vmap``
+  through a K2-route search still work. The wrapper raises on a wrong
+  dtype, shape, contiguity or device.
 
 The kernel itself runs on the card only (``chip_smoke.py``).
 """
@@ -67,19 +71,9 @@ def _one_thread_clean_knobs(monkeypatch):
     torch.set_num_threads(n)
 
 
-@pytest.fixture
-def on_card(monkeypatch):
-    """The route's device test answers "a card" for CPU tensors: the word
-    routes then call the kernel's wrapper, whose CPU branch is the plain
-    version."""
-    monkeypatch.setattr(search, "_on_card", lambda t: True)
-
-
 def _bits(t):
     return t.contiguous().view(torch.int32) if t.is_floating_point() else t
 
-
-# --- The plain version against the torch prelude. ---------------------------
 
 
 def _boxes(rng, n):
@@ -136,14 +130,67 @@ def _rays(rng, r, lo, hi, alive):
             None if live is None else torch.from_numpy(live[:r]))
 
 
+# --- The frozen torch composition. -----------------------------------------
+
+
+def _box_words(lo_w, hi_w, o_p, d_p, a_p):
+    """Words of boxes grouped 31 to a word: ``lo_w/hi_w [N, 31, 3]`` →
+    ``[C, N]`` int32, bit ``j`` of word ``n`` set iff box ``(n, j)`` passes
+    for some live lane. Tested in groups of words to bound memory."""
+    inv_p = culling._inv_dir(d_p)
+    c, n = o_p.shape[0], lo_w.shape[0]
+    bits = torch.ones((), dtype=torch.int32, device=o_p.device) << torch.arange(
+        culling.BITS_PER_WORD, dtype=torch.int32, device=o_p.device)
+    zero = torch.zeros((), dtype=torch.int32, device=o_p.device)
+    per_word = c * culling.RAY_SUBLANES * culling.BITS_PER_WORD * 3
+    step = max(1, culling.SLAB_ELEMS_BUDGET // max(per_word, 1))
+    out = [torch.zeros((c, 0), dtype=torch.int32, device=o_p.device)]
+    for w0 in range(0, n, step):
+        lo = lo_w[w0:w0 + step].reshape(-1, 3)
+        hi = hi_w[w0:w0 + step].reshape(-1, 3)
+        hit = culling.slab_any_hit(lo, hi, o_p, inv_p, a_p).reshape(
+            c, lo.shape[0] // culling.BITS_PER_WORD, culling.BITS_PER_WORD)
+        out.append(torch.where(hit, bits, zero).sum(dim=2, dtype=torch.int32))
+    return torch.cat(out, dim=1)
+
+
 def _torch_prelude(o, d, alive, lo, hi):
     """The torch prelude on a list of boxes: padded to whole words with
     inverted boxes, then ``_box_words`` of the rays' packets."""
     w = -(-lo.shape[0] // culling.BITS_PER_WORD)
     lo_p, hi_p = culling._pad_boxes(lo, hi, w * culling.BITS_PER_WORD, 0)
-    return culling._box_words(lo_p.reshape(w, culling.BITS_PER_WORD, 3),
-                              hi_p.reshape(w, culling.BITS_PER_WORD, 3),
-                              *culling.packets(o, d, alive))
+    return _box_words(lo_p.reshape(w, culling.BITS_PER_WORD, 3),
+                      hi_p.reshape(w, culling.BITS_PER_WORD, 3),
+                      *culling.packets(o, d, alive))
+
+
+def _torch_block_masks(o, d, alive, accel):
+    return _torch_prelude(o, d, alive, accel.aabb_lo, accel.aabb_hi)
+
+
+def _torch_union_words(o, d, alive, accel):
+    return culling.program_union(_torch_block_masks(o, d, alive, accel))
+
+
+def _torch_tile_words_multi(o, d, alive, accel, n_tiles, bpt, granule):
+    lo, hi, n_words = culling.tile_boxes(accel, n_tiles, bpt, granule)
+    return _box_words(lo.reshape(n_tiles * n_words, culling.BITS_PER_WORD, 3),
+                      hi.reshape(n_tiles * n_words, culling.BITS_PER_WORD, 3),
+                      *culling.packets(o, d, alive)).reshape(-1, n_tiles, n_words)
+
+
+def _torch_tile_words(o, d, alive, accel, n_tiles, bpt, granule):
+    return _torch_tile_words_multi(o, d, alive, accel, n_tiles, bpt, granule)[..., 0]
+
+
+# The word routes' entries in ``culling`` and their frozen compositions.
+FROZEN = {"packet_block_masks": _torch_block_masks,
+          "program_union_words": _torch_union_words,
+          "packet_tile_words_multi": _torch_tile_words_multi,
+          "packet_tile_words": _torch_tile_words}
+
+
+# --- The plain version against the torch prelude. ---------------------------
 
 
 @pytest.mark.parametrize("alive", ("none", "partial", "dead"))
@@ -216,23 +263,22 @@ def _scene_rays(scene, n_rays=300, alive=True):
 def test_each_word_route_gives_its_torch_words(box2560, case, alive):
     accel = box2560.accel
     o, d, live = _scene_rays(box2560, alive=alive)
-    pk = culling.packets(o, d, live)
     if case == "bitmask":
-        got = culling.kernel_block_masks(o, d, live, accel)
-        want = culling.packet_block_masks(*pk, accel)
+        got = culling.packet_block_masks(o, d, live, accel)
+        want = _torch_block_masks(o, d, live, accel)
     elif case == "mxu":
-        got = culling.kernel_union_words(o, d, live, accel)
-        want = culling.program_union_words(*pk, accel)
+        got = culling.program_union_words(o, d, live, accel)
+        want = _torch_union_words(o, d, live, accel)
         assert torch.equal(got[1], want[1]) and want[1].any()
         got, want = got[0], want[0]
     else:  # tiles of 6 blocks, the last one part filled
         granule = 3 if case.endswith("3") else 1
         if case == "words":
-            got = culling.kernel_tile_words(o, d, live, accel, 4, 6, granule)
-            want = culling.packet_tile_words(*pk, accel, 4, 6, granule)
+            got = culling.packet_tile_words(o, d, live, accel, 4, 6, granule)
+            want = _torch_tile_words(o, d, live, accel, 4, 6, granule)
         else:
-            got = culling.kernel_tile_words_multi(o, d, live, accel, 4, 6, granule)
-            want = culling.packet_tile_words_multi(*pk, accel, 4, 6, granule)
+            got = culling.packet_tile_words_multi(o, d, live, accel, 4, 6, granule)
+            want = _torch_tile_words_multi(o, d, live, accel, 4, 6, granule)
     assert got.shape == want.shape and torch.equal(got, want)
     assert want.any()
 
@@ -240,7 +286,7 @@ def test_each_word_route_gives_its_torch_words(box2560, case, alive):
 def test_words_entry_refuses_a_granule_of_more_than_31_bits(box2560):
     o, d, live = _scene_rays(box2560)
     with pytest.raises(ValueError, match="more than 31 bits"):
-        culling.kernel_tile_words(o, d, live, box2560.accel, 1, 64, 2)
+        culling.packet_tile_words(o, d, live, box2560.accel, 1, 64, 2)
 
 
 # --- The route. ------------------------------------------------------------
@@ -268,11 +314,22 @@ def _counted(fn, monkeypatch):
     return out, {k: after[k] - before[k] for k in after}, calls
 
 
+def _frozen_counted(fn, monkeypatch):
+    """:func:`_counted` with the word routes' entries swapped for their
+    frozen torch composition (:data:`FROZEN`)."""
+    with monkeypatch.context() as mp:
+        for name, entry in FROZEN.items():
+            mp.setattr(culling, name, entry)
+        return _counted(fn, mp)
+
+
 def test_a_cpu_call_takes_the_torch_route(box2560, monkeypatch):
+    """On the CPU the words are the kernel's plain version (torch), reached
+    through the wrapper once a search, with no launch."""
     _, delta, calls = _counted(lambda: _render(box2560), monkeypatch)
     assert delta["search.cull_packets"] > 0
-    assert delta["cull.torch_packets"] == delta["search.cull_packets"]
-    assert delta["cull.kernel_packets"] == 0 and calls == []
+    assert len(calls) == delta["integrator.bounces"] > 0
+    assert sum(-(-r // 8) for r in calls) == delta["search.cull_packets"]
     assert delta["launches.cull_words"] == 0
 
 
@@ -284,17 +341,16 @@ def test_the_card_route_takes_every_word_search_and_keeps_the_bits(
     way = search.route(box640.n_triangles, box640.accel.n_blocks,
                        search.Knobs.read())
     assert route.startswith(f"{way.kernel} {way.tpu}")
-    (img, n), torch_delta, _ = _counted(lambda: _render(box640), monkeypatch)
-    monkeypatch.setattr(search, "_on_card", lambda t: True)
+    (img, n), torch_delta, torch_calls = _frozen_counted(lambda: _render(box640),
+                                                         monkeypatch)
     (got, m), delta, calls = _counted(lambda: _render(box640), monkeypatch)
     assert torch.equal(_bits(got), _bits(img)) and m == n > 0
     packets = delta["search.cull_packets"]
-    assert packets == torch_delta["search.cull_packets"] > 0
+    assert packets == torch_delta["search.cull_packets"] > 0 and torch_calls == []
     assert delta["launches.cull_words"] == 0  # the CPU branch launches nothing
-    if way.kernel == "range":  # its first/last spans stay in torch
-        assert delta["cull.torch_packets"] == packets and calls == []
+    if way.kernel == "range":  # its first/last spans are torch slab tests
+        assert calls == []
         return
-    assert delta["cull.kernel_packets"] == packets and delta["cull.torch_packets"] == 0
     assert len(calls) == delta["integrator.bounces"]
     assert sum(-(-r // 8) for r in calls) == packets
 
@@ -308,18 +364,16 @@ def test_spd_tetra_keeps_its_bits_and_rays_on_the_card_route(monkeypatch):
     def frame():
         return render(scene, cam, 16, 12, spp=2, max_bounce=4, seed=11, pixel_chunk=96)
 
-    (img, n), torch_delta, _ = _counted(frame, monkeypatch)
-    monkeypatch.setattr(search, "_on_card", lambda t: True)
+    (img, n), torch_delta, _ = _frozen_counted(frame, monkeypatch)
     (got, m), delta, calls = _counted(frame, monkeypatch)
     assert torch.equal(_bits(got), _bits(img)) and m == n > 0
-    assert delta["cull.kernel_packets"] == delta["search.cull_packets"] > 0
-    assert delta["cull.torch_packets"] == 0
+    assert delta["search.cull_packets"] == torch_delta["search.cull_packets"] > 0
+    assert sum(-(-r // 8) for r in calls) == delta["search.cull_packets"]
     assert delta["search.bitmask_blocks"] == torch_delta["search.bitmask_blocks"] > 0
     assert len(calls) == delta["integrator.bounces"]
 
 
-def test_jvp_and_vmap_through_a_k2_search_on_the_card_route(box2560, on_card,
-                                                            monkeypatch):
+def test_jvp_and_vmap_through_a_k2_search_on_the_card_route(box2560, monkeypatch):
     tris, n, accel = box2560.triangles, box2560.n_triangles, box2560.accel
     o, d, _ = _scene_rays(box2560, n_rays=64)
 
@@ -340,7 +394,8 @@ def test_jvp_and_vmap_through_a_k2_search_on_the_card_route(box2560, on_card,
         assert torch.equal(_bits(got_d[b]), _bits(want_d))
         assert torch.equal(got_i[b], want_i)
     # One call of the route under vmap; the wrapper's body runs per element.
-    assert calls == [64] and delta["cull.kernel_packets"] == delta["search.cull_packets"] == 8
+    assert calls == [64] and delta["search.cull_packets"] == 8
+    assert delta["launches.cull_words"] == 0
 
 
 @pytest.mark.parametrize("fault", ("dtype", "shape", "alive shape", "alive dtype",
@@ -373,7 +428,10 @@ def test_the_wrapper_refuses_other_devices():
 
 
 def test_counters_report_the_wrapper_and_both_routes(monkeypatch):
+    """The word routes' launches and every route's packets are counted; no
+    counter tells the prelude's routes apart, since there is one."""
     monkeypatch.setattr(culling.cull_words, "launches", 4321)
     snap = counters()
     assert snap["launches.cull_words"] == 4321
-    assert {"cull.kernel_packets", "cull.torch_packets"} <= set(COUNTS) <= set(snap)
+    assert "search.cull_packets" in COUNTS and set(COUNTS) <= set(snap)
+    assert not [k for k in snap if k.startswith("cull.")]

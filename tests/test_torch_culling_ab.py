@@ -41,35 +41,35 @@ def _scene(case):
 
 
 def _packets(r, seed, dead_packets):
-    """Ragged rays; 30% dead lanes, and every 5th packet wholly dead."""
+    """Ragged rays; 30% dead lanes, and every 5th packet wholly dead:
+    ``((o, d, alive) for the port, their packets for JAX)``."""
     o, d, alive = rays(r, seed)
     if dead_packets:
         alive[(np.arange(r) // 8) % 5 == 0] = False
-    o_p, d_p, a_p = culling.packets(torch.from_numpy(o), torch.from_numpy(d),
-                                    torch.from_numpy(alive))
-    return (o_p, d_p, a_p), tuple(jnp.asarray(x.numpy()) for x in (o_p, d_p, a_p))
+    ray = tuple(map(torch.from_numpy, (o, d, alive)))
+    return ray, tuple(jnp.asarray(x.numpy()) for x in culling.packets(*ray))
 
 
 @pytest.mark.parametrize("dead_packets", [False, True])
 @pytest.mark.parametrize("case", ["soup71", "box_x5", "trivial"])
 def test_packet_block_ranges_match_jax(case, dead_packets, monkeypatch):
     ja, pa = _scene(case)
-    (o_p, d_p, a_p), jp = _packets(1001, seed=33, dead_packets=dead_packets)
+    ray, jp = _packets(1001, seed=33, dead_packets=dead_packets)
     want = [np.asarray(x) for x in ip.packet_block_ranges(*jp, ja)]
-    got = culling.packet_block_ranges(o_p, d_p, a_p, pa)
+    got = culling.packet_block_ranges(*ray, pa)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), w)
     # One block per slab-test group: the grouping changes no bit.
     monkeypatch.setattr(culling, "SLAB_ELEMS_BUDGET", 1)
-    one_by_one = culling.packet_block_ranges(o_p, d_p, a_p, pa)
+    one_by_one = culling.packet_block_ranges(*ray, pa)
     assert all(torch.equal(a, b) for a, b in zip(one_by_one, got))
     first, last = got
     empty = first > last
     # Empty spans are exactly (2**30, -1), and only packets without a live
     # lane that passes some box have one.
     assert (first[empty] == 2**30).all() and (last[empty] == -1).all()
-    live = a_p.any(dim=1)
+    live = culling.packets(*ray)[2].any(dim=1)
     assert empty[~live].all()
     assert (first[~empty] >= 0).all() and (last[~empty] < pa.n_blocks).all()
     if case == "trivial":  # every box always passes: the whole plane
@@ -86,15 +86,14 @@ def test_packet_tile_words_match_jax(case, n_tiles):
     ja, pa = _scene(case)
     bpt = -(-pa.n_blocks // n_tiles)
     granule = -(-bpt // culling.BITS_PER_WORD)
-    (o_p, d_p, a_p), jp = _packets(999, seed=34, dead_packets=True)
+    ray, jp = _packets(999, seed=34, dead_packets=True)
     want = np.asarray(ip.packet_tile_words(*jp, ja, n_tiles, bpt, granule))
-    got = culling.packet_tile_words(o_p, d_p, a_p, pa, n_tiles, bpt, granule)
+    got = culling.packet_tile_words(*ray, pa, n_tiles, bpt, granule)
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     # The one-word case of the packed kernel's words; the bits past the
     # tile's last granule stay clear.
-    multi = culling.packet_tile_words_multi(o_p, d_p, a_p, pa, n_tiles, bpt,
-                                            granule)
+    multi = culling.packet_tile_words_multi(*ray, pa, n_tiles, bpt, granule)
     assert multi.shape[2] == 1 and torch.equal(multi[..., 0], got)
     assert (want < 2 ** -(-bpt // granule)).all()
     assert (want[::5] == 0).all() and (want != 0).sum() > 20
@@ -102,6 +101,6 @@ def test_packet_tile_words_match_jax(case, n_tiles):
 
 def test_packet_tile_words_rejects_a_fine_granule():
     _, pa = _scene("soup71")
-    (o_p, d_p, a_p), _ = _packets(16, seed=35, dead_packets=False)
+    ray, _ = _packets(16, seed=35, dead_packets=False)
     with pytest.raises(ValueError, match="granule=2"):
-        culling.packet_tile_words(o_p, d_p, a_p, pa, 1, 71, 2)  # 36 bits
+        culling.packet_tile_words(*ray, pa, 1, 71, 2)  # 36 bits

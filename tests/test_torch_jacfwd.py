@@ -193,8 +193,8 @@ def test_vmap_over_cameras_equals_renders(scenes, mode):  # noqa: F811
     assert len({int(c) for c in counts}) > 1  # the cameras' paths differ
 
 
-# The accel routes, whose culling prelude (culling.packets, the per-packet
-# words or spans, stream_tile_pad) runs on the batched rays outside
+# The accel routes, whose culling prelude (the per-packet words of
+# culling.cull_words or the spans, stream_tile_pad) runs on the batched rays outside
 # _NoTangent: box_scene tessellated, routed by the knobs as
 # tests/test_torch_render_accel.py routes it (the bitmask route at
 # --tessellate 5 with the default knobs, as chip_smoke.py's K2 case; the

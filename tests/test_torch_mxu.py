@@ -143,8 +143,8 @@ def test_program_union_words_match_jax(with_alive):
                            jax.lax.bitwise_or, (1,))
     flags = jnp.max((words != 0).astype(jnp.int32), axis=1)
     got_w, got_f = culling.program_union_words(
-        *culling.packets(torch.from_numpy(o), torch.from_numpy(d),
-                         torch.from_numpy(alive) if with_alive else None), pa)
+        torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(alive) if with_alive else None, pa)
     assert got_w.dtype == got_f.dtype == torch.int32
     np.testing.assert_array_equal(got_w.numpy(), np.asarray(words))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(flags))
@@ -324,7 +324,7 @@ def test_search_mxu_validates():
     jtris, n = _random_soup(t=200)
     accel = build_accel(port_tris(jtris), n)
     o, d = torch.zeros((16, 3)), torch.ones((16, 3))
-    w, f = culling.program_union_words(*culling.packets(o, d), accel)
+    w, f = culling.program_union_words(o, d, None, accel)
     args = (o, d, w, f, accel.mxu_coeffs, accel.orig_idx)
     with pytest.raises(ValueError, match="precision"):
         pm.search_mxu(*args, "high")
@@ -365,7 +365,7 @@ def test_smoke_contract_catches_split3_held_to_highest():
     tris, n, (lo, hi) = cs.packet_scene(rng, "soup", 1024)
     accel = build_accel(tris, n)
     o, d, alive = (torch.from_numpy(x) for x in packet_rays(rng, 4096, lo, hi))
-    w, f = culling.program_union_words(*culling.packets(o, d, alive), accel)
+    w, f = culling.program_union_words(o, d, alive, accel)
     run = lambda prec: pm.search_mxu_reference(o, d, w, f, accel.mxu_coeffs,
                                                accel.orig_idx, prec, alive)
     highest = run("highest")

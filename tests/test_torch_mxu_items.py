@@ -153,7 +153,7 @@ def culled():
     accel = build_accel(port_tris(jtris), n)
     o, d, alive = (torch.from_numpy(x) for x in rays_at(2600, seed=32))
     alive[2048:] = False
-    words, flags = culling.program_union_words(*culling.packets(o, d, alive), accel)
+    words, flags = culling.program_union_words(o, d, alive, accel)
     assert flags.tolist() == [1, 1, 0]
     assert (bitmask_table(words, accel.n_blocks).sum(1)[:2] > pm.SPLIT).all()
     args = (o, d, words, flags, accel.mxu_coeffs, accel.orig_idx)
@@ -215,7 +215,7 @@ def _union_case(n_tris, r, seed):
     jtris, n = soup(n_tris, seed=seed)
     accel = build_accel(port_tris(jtris), n)
     o, d, alive = (torch.from_numpy(x) for x in rays_at(r, seed=seed + 1))
-    words, flags = culling.program_union_words(*culling.packets(o, d, alive), accel)
+    words, flags = culling.program_union_words(o, d, alive, accel)
     return o, d, words, flags, accel.packed_plane, accel.orig_idx
 
 

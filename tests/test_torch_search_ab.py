@@ -126,10 +126,9 @@ def test_plain_versions_direct():
     accel = build_accel(tris, n)
     o, d, alive = rays_at(517, seed=24)
     to, td, ta = (torch.from_numpy(x) for x in (o, d, alive))
-    o_p, d_p, a_p = culling.packets(to, td, ta)
     plane, oi = accel.packed_plane, accel.orig_idx
 
-    first, last = culling.packet_block_ranges(o_p, d_p, a_p, accel)
+    first, last = culling.packet_block_ranges(to, td, ta, accel)
     k4 = search_range(to, td, first, last, plane, oi)
     assert all(torch.equal(a, b) for a, b in zip(
         k4, search_range_reference(to, td, first, last, plane, oi)))
@@ -148,7 +147,7 @@ def test_plain_versions_direct():
     for tile, n_tiles in ((1792, 1), (640, 3), (256, 7)):
         bpt = tile // 128
         g = -(-bpt // 31)
-        w = culling.packet_tile_words(o_p, d_p, a_p, accel, n_tiles, bpt, g)
+        w = culling.packet_tile_words(to, td, ta, accel, n_tiles, bpt, g)
         pt, ot = culling.stream_tile_pad(plane, oi, tile)
         kw = search_words(to, td, w, pt, ot, tile, g)
         assert all(torch.equal(a, b) for a, b in zip(

@@ -145,10 +145,9 @@ def test_packet_search_matches_interpret_pallas(name, env, kernel, rays, monkeyp
         # same distance, resolved to the original.
         assert np.isin(pi[alive], copied).sum() > 10
         # The packets are incoherent: each tests much of the scene.
-        o_p, d_p, a_p = culling.packets(to, td, ta)
-        words = culling.packet_block_masks(o_p, d_p, a_p, accel)
+        words = culling.packet_block_masks(to, td, ta, accel)
         per_packet = bitmask_table(words, accel.n_blocks).sum(1).float()
-        assert per_packet[a_p.any(1)].mean() > 0.3 * accel.n_blocks
+        assert per_packet[culling.packets(to, td, ta)[2].any(1)].mean() > 0.3 * accel.n_blocks
 
 
 def test_plain_versions_direct():
@@ -159,10 +158,9 @@ def test_plain_versions_direct():
     accel = build_accel(tris, n)
     o, d, alive = rays_at(517, seed=24)
     to, td, ta = (torch.from_numpy(x) for x in (o, d, alive))
-    o_p, d_p, a_p = culling.packets(to, td, ta)
     plane, oi = accel.packed_plane, accel.orig_idx
 
-    words = culling.packet_block_masks(o_p, d_p, a_p, accel)
+    words = culling.packet_block_masks(to, td, ta, accel)
     k2 = search_bitmask(to, td, words, plane, oi)
     ref = search_bitmask_reference(to, td, words, plane, oi)
     assert all(torch.equal(a, b) for a, b in zip(ref, k2))
@@ -170,7 +168,7 @@ def test_plain_versions_direct():
     tile, n_tiles = 512, 4
     plane_t, oi_t = culling.stream_tile_pad(plane, oi, tile)
     for g in (1, 2, 4):
-        tw = culling.packet_tile_words_multi(o_p, d_p, a_p, accel, n_tiles,
+        tw = culling.packet_tile_words_multi(to, td, ta, accel, n_tiles,
                                              tile // 128, g)
         k3 = search_packed(to, td, tw, plane_t, oi_t, tile, g)
         ref = search_packed_reference(to, td, tw, plane_t, oi_t, tile, g)

@@ -214,7 +214,7 @@ def test_split_walk_equals_reference_on_culled_spans(split):
     jtris, n = soup(1800, seed=21)  # 15 blocks
     accel = build_accel(port_tris(jtris), n)
     o, d, alive = (torch.from_numpy(x) for x in rays_at(1003, seed=22))
-    first, last = culling.packet_block_ranges(*culling.packets(o, d, alive), accel)
+    first, last = culling.packet_block_ranges(o, d, alive, accel)
     assert (first > last).any() and (range_items(first, last, accel.n_blocks, split) > 1).any()
     got = search_range_split(o, d, first, last, accel.packed_plane, accel.orig_idx, split)
     ref = search_range(o, d, first, last, accel.packed_plane, accel.orig_idx)
@@ -237,7 +237,7 @@ def test_range_wrapper_matches_interpret_pallas_k5(monkeypatch):
     way = search.route(n, accel.n_blocks, search.Knobs.read())
     assert (way.kernel, way.tpu, way.n_tiles) == ("range", "K5", 8)
     to, td, ta = (torch.from_numpy(x) for x in (o, d, alive))
-    first, last = culling.packet_block_ranges(*culling.packets(to, td, ta), accel)
+    first, last = culling.packet_block_ranges(to, td, ta, accel)
     plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx, way.tile)
     pd, pi = search_range(to, td, first, last, plane, oi)
     np.testing.assert_array_equal(pi.numpy(), ji)  # every lane, dead ones included
@@ -271,7 +271,7 @@ def test_wide_span_rays_span_the_whole_plane():
     accel = scene.accel
     o, d, alive = (torch.from_numpy(x) for x in packets.wide_span_rays(
         np.random.default_rng(6), 2003, *packet_sweep.BOX_ORIGINS, accel))
-    first, last = culling.packet_block_ranges(*culling.packets(o, d, alive), accel)
+    first, last = culling.packet_block_ranges(o, d, alive, accel)
     whole = (first == 0) & (last == accel.n_blocks - 1)
     assert whole[::8].all() and whole.sum() >= first.numel() // 8
     got = search_range(o, d, first, last, accel.packed_plane, accel.orig_idx)

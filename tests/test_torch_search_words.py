@@ -155,7 +155,7 @@ def _culled(granule, tile):
     o, d, alive = (torch.from_numpy(x) for x in rays_at(1003, seed=22))
     plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx, tile)
     n_tiles, bpt = plane.shape[1] // tile, tile // BLOCK
-    words = culling.packet_tile_words(*culling.packets(o, d, alive), accel,
+    words = culling.packet_tile_words(o, d, alive, accel,
                                       n_tiles, bpt, granule)
     return o, d, alive, words, plane, oi
 
@@ -220,7 +220,7 @@ def test_words_wrapper_matches_interpret_pallas_k7_at_granule_2(monkeypatch):
     assert (way.kernel, way.tpu, way.n_tiles, way.tile, way.granule) == (
         "words", "K7", 2, 4992, 2)
     to, td, ta = (torch.from_numpy(x) for x in (o, d, alive))
-    words = culling.packet_tile_words(*culling.packets(to, td, ta), accel,
+    words = culling.packet_tile_words(to, td, ta, accel,
                                       way.n_tiles, way.tile // BLOCK, way.granule)
     assert ((words >> 19) & 1).any()  # the clipped bit is walked
     plane, oi = culling.stream_tile_pad(accel.packed_plane, accel.orig_idx, way.tile)
@@ -265,7 +265,7 @@ def test_wide_span_rays_reach_both_ends_of_the_words(env, tpu, granule, monkeypa
     o, d, alive = (torch.from_numpy(x) for x in packets.wide_span_rays(
         np.random.default_rng(6), 1003, *packet_sweep.BOX_ORIGINS, accel))
     bpt = way.tile // BLOCK
-    words = culling.packet_tile_words(*culling.packets(o, d, alive), accel,
+    words = culling.packet_tile_words(o, d, alive, accel,
                                       way.n_tiles, bpt, way.granule)
     table = packed_table(words[..., None], bpt, way.granule)
     assert (table[:, 0] & table[:, accel.n_blocks - 1])[::8].all()

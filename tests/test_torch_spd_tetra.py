@@ -159,20 +159,16 @@ def counted_render():
     popcounts, rays a culling call)``."""
     _, load = _load(6, None, width=16, height=16)
     popcounts, rays = [], []
-    masks, packets = culling.packet_block_masks, culling.packets
+    masks = culling.packet_block_masks
 
-    def block_masks(o_p, d_p, a_p, accel):
-        words = masks(o_p, d_p, a_p, accel)
+    def block_masks(o, d, alive, accel):
+        rays.append(o.shape[0])
+        words = masks(o, d, alive, accel)
         popcounts.append(int(bitmask_table(words, accel.n_blocks).sum()))
         return words
 
-    def count_packets(o, d, alive=None):
-        rays.append(o.shape[0])
-        return packets(o, d, alive)
-
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(culling, "packet_block_masks", block_masks)
-        mp.setattr(culling, "packets", count_packets)
         before = counters()
         load.window(0.0)
         after = counters()

@@ -94,7 +94,7 @@ def test_union_walk_matches_jax(monkeypatch):
 
     pa = bridge.accel_from_numpy(bridge.accel_arrays(ja))
     to, td, ta = (torch.from_numpy(x) for x in (o, d, alive))
-    words, flags = culling.program_union_words(*culling.packets(to, td, ta), pa)
+    words, flags = culling.program_union_words(to, td, ta, pa)
     args = (to, td, words, flags, pa.packed_plane, pa.orig_idx)
     kd, ki = search_union(*args)  # the CPU path is the plain version
     assert all(torch.equal(a, b) for a, b in zip((kd, ki), search_union_reference(*args)))
@@ -111,7 +111,7 @@ def test_union_walk_matches_jax(monkeypatch):
     assert (ki[alive] >= 0).sum() > 100
     # Each packet tests its program's union, a superset of its own bits.
     table = union_table(words, flags, 1500, pa.n_blocks)
-    own = culling.packet_block_masks(*culling.packets(to, td, ta), pa)
+    own = culling.packet_block_masks(to, td, ta, pa)
     assert table.shape == (188, 4)
     assert torch.equal(table | bitmask_table(own, pa.n_blocks), table)
 
