@@ -7,7 +7,10 @@ per source, in parallel), holds each against its plain PyTorch version on
 the card (bit for bit; the tensor-core MXU kernel within its contract; the
 shading kernel's four entries also through a whole 1080p frame on each of
 its two routes; the culling kernel through each word route's entry against
-the same entry on a CPU copy of its inputs, its plain version),
+the same entry on a CPU copy of its inputs, its plain version; the
+compaction kernel against torch.nonzero and the gathers, and through a
+whole frame of each benchmark scene against the same frame with the
+compaction's route forced to torch),
 drives the renderer's main path through the CLI (the user's entry point) at
 every kernel's scene size and under every search knob that picks a kernel,
 then its progressive (checkpointed, resumed), bounce-heatmap, trace and
@@ -220,7 +223,7 @@ UNION_TIMED = "box 10,240 (--tessellate 5)"  # the union tool's scene
 # the words kernel K9 runs.
 NO_SPILLS = ("search_brute_kernel", "search_range_kernel", "search_words_kernel",
              "search_mxu_kernel", "mxu_pack_kernel", "mxu_items_kernel",
-             "shade_kernel", "cull_words_kernel")
+             "shade_kernel", "cull_words_kernel", "compact_kernel")
 # The K1 instantiation whose MT loop tools/sass_loop.py counts: 8 lanes a
 # ray over a staged table (TIMED_RAYS rays at 640 triangles).
 SASS_KERNEL = "search_brute_kernelILi8ELb0E"
@@ -428,6 +431,30 @@ TETRA_CAMERA = dict(origin=(48.0, -48.0, -340.0), target=(0.0, 0.0, 0.0),
 # reciprocal: 3 abs compares, 3 selects and 3 divisions.
 CULL_SLAB_OPS = 24
 CULL_RAY_OPS = 9
+# Phase 3h: the compaction kernel (csrc/compact.cu) against torch.nonzero
+# and the gathers (its plain version, ops/compact.py compact_reference, run
+# on the card) bit for bit, at COMPACT_LANES lanes by COMPACT_DENSITIES live
+# shares: a bounce's compaction (lane ids, five rows of 12 and 8 bytes, the
+# dead lanes' radiance written back into an image) and the trace entry's
+# and the hit front's (no ids; rows of 12, 8 and 4 bytes), into buffers
+# holding junk; then COMPACT_BURST launches back to back over
+# COMPACT_BURST_LANES (past the status words first allocated, so they
+# grow), each launch's count and lanes checked (the epochs and tickets);
+# then a whole frame of the benchmark's tetra and Cornell box
+# (COMPACT_CONFIGS, each with its scene, sky and camera; COMPACT_FRAME) on
+# the kernel route == the same frame with the compaction's route forced to
+# torch (compact.route replaced here, the shading kernel on in both);
+# timed at COMPACT_TIMED lanes (a bounce's, the share COMPACT_TIMED_LIVE
+# live) beside the torch compaction it replaces.
+COMPACT_LANES = (1, 255, 256, 65536, 131072, 524288)
+COMPACT_DENSITIES = (0.0, 0.01, 0.3, 0.7, 1.0)
+COMPACT_BURST = 1000
+COMPACT_BURST_LANES = (65536, 1, 1100000, 1025, 16384, 300001, 255)
+COMPACT_FRAME = dict(width=1920, height=1080, spp=2, max_bounce=8)
+COMPACT_SEED = 20261019  # its own generator: the later phases' data stays as it was
+COMPACT_TIMED = 65536
+COMPACT_TIMED_LIVE = 0.7
+COMPACT_CONFIGS = ("spd_tetra", "cornell")  # the benchmark's, portbench/configs
 MIN_CLOSE_FRAC = 0.995
 MAX_MEAN_ABS = 1e-3
 MAX_COUNT_REL = 1e-3
@@ -590,21 +617,26 @@ def phase(name: str, t0: float, msg: str) -> None:
     print(f"[{name}] {time.time() - t0:.3f}s {msg}", flush=True)
 
 
+# The kernels of the integrator's kernel route: every render with no
+# derivative on the card launches both, and no other run either.
+ROUTE_KERNELS = ("shade_kernel", "compact_kernel")
+
+
 def check_launches(label: str, launched: dict, expect, shade: bool) -> None:
     """Raise unless every kernel of ``expect`` (a name or a tuple) launched,
-    the shading kernel launched (``shade``: a render with no derivative on
-    the card) or did not (a gradient, a tangent, a vmap or the heatmap's
-    walk: the torch route), and no other kernel did."""
+    the shading and compaction kernels launched (``shade``: a render with
+    no derivative on the card) or did not (a gradient, a tangent, a vmap or
+    the heatmap's walk: the torch route), and no other kernel did."""
     expect = (expect,) if isinstance(expect, str) else expect
     for k in expect:
         if launched[k] < 1:
             raise AssertionError(f"{label}: {k} never launched: {launched}")
-    if shade != (launched["shade_kernel"] > 0):
-        raise AssertionError(f"{label}: shade_kernel launched "
-                             f"{launched['shade_kernel']} times (expected "
-                             f"{'some' if shade else 'none'})")
+    for k in ROUTE_KERNELS:
+        if shade != (launched[k] > 0):
+            raise AssertionError(f"{label}: {k} launched {launched[k]} times "
+                                 f"(expected {'some' if shade else 'none'})")
     others = {k: v for k, v in launched.items()
-              if k not in expect and k != "shade_kernel" and v}
+              if k not in expect and k not in ROUTE_KERNELS and v}
     if others:
         raise AssertionError(f"{label}: other kernels launched: {others}")
 
@@ -2009,6 +2041,182 @@ def check_cull_kernel(dev, rng) -> dict:
     return {"cases": cases, "notes": notes, "timed": timed}
 
 
+def compact_lanes(gen, n: int, live: float, dev) -> dict:
+    """A seeded compaction's inputs on the card: a bounce's lane ids
+    (ascending, spread over an image of 2n + 1 rows), pos, d, thr, light
+    [n, 3], states, smoothness [n], the mask (the share ``live`` set) and
+    the image."""
+    import numpy as np
+    import torch
+
+    f32 = lambda *s: torch.from_numpy(gen.normal(size=s).astype(np.float32)).to(dev)
+    return dict(
+        ids=torch.from_numpy(np.sort(gen.choice(2 * n + 1, n, replace=False))).to(dev),
+        pos=f32(n, 3), d=f32(n, 3), thr=f32(n, 3), light=f32(n, 3),
+        state=torch.from_numpy(gen.integers(0, 2**32, n, dtype=np.int64)).to(dev),
+        smooth=f32(n), mask=torch.from_numpy(gen.random(n) < live).to(dev),
+        image=f32(2 * n + 1, 3))
+
+
+def check_compact_kernel(dev, gen) -> dict:
+    """Phase 3h. Returns ``{"cases", "burst", "frames", "timed", "report"}``;
+    raises on any disagreement."""
+    import torch
+
+    from raytracingc_tpu_torch.camera import Camera
+    from raytracingc_tpu_torch.ops import _build, compact, shade
+    from raytracingc_tpu_torch.render.renderer import render
+    from raytracingc_tpu_torch.tools import cuda_ms, split_times
+    from raytracingc_tpu_torch.utils.profiling import COUNTS
+    from portbench.lib.traffic import camera_fov, program_scene
+
+    def junk(like, n):
+        return [torch.full((n + 3, *t.shape[1:]), -7, dtype=t.dtype, device=dev)
+                for t in like]
+
+    def same(label, got, want):
+        for k, (a, b) in enumerate(zip(got, want)):
+            if not _same_bits(a, b):
+                raise AssertionError(f"compact {label}: output {k} differs from the "
+                                     f"plain version ({tuple(a.shape)} against "
+                                     f"{tuple(b.shape)})")
+
+    def bounce_args(x):
+        payload = [x[k] for k in ("pos", "d", "thr", "state", "light")]
+        return payload, junk(payload, x["mask"].numel())
+
+    def entry_args(x):
+        payload = [x["pos"], x["state"], x["smooth"]]
+        return payload, junk(payload, x["mask"].numel())
+
+    cases, launches = 0, compact.compact_kernel.launches
+    for n in COMPACT_LANES:
+        for live in COMPACT_DENSITIES:
+            x = compact_lanes(gen, n, live, dev)
+            label = f"{n} lanes, {live:.0%} live"
+            for kind, (payload, outs) in (("bounce", bounce_args(x)),
+                                          ("entry", entry_args(x))):
+                ids = x["ids"] if kind == "bounce" else None
+                img_k, img_p = x["image"].clone(), x["image"].clone()
+                wb = lambda img: (x["light"], img) if kind == "bounce" else None
+                lanes_k, got = compact.compact_kernel(
+                    x["mask"], ids, payload, outs, junk([x["ids"]], n)[0], wb(img_k))
+                outs_p = junk(payload, n)
+                lanes_p = junk([x["ids"]], n)[0]
+                m = compact.compact_reference(x["mask"], ids, payload, outs_p, lanes_p,
+                                              wb(img_p))
+                if lanes_k.numel() != m or m != int(x["mask"].sum()):
+                    raise AssertionError(f"compact {kind} {label}: {lanes_k.numel()} "
+                                         f"lanes kept, the plain version {m}")
+                same(f"{kind} {label}", [lanes_k, *got, img_k],
+                     [lanes_p[:m], *(o[:m] for o in outs_p), img_p])
+                cases += 1
+    torch.cuda.synchronize()
+    if compact.compact_kernel.launches - launches != 2 * len(COMPACT_LANES) * len(
+            COMPACT_DENSITIES):
+        raise AssertionError(f"compact: {compact.compact_kernel.launches - launches} "
+                             f"launches for {cases} cases")
+
+    # Launches back to back: the status words' epochs and the tickets.
+    inputs = [compact_lanes(gen, n, COMPACT_DENSITIES[k % len(COMPACT_DENSITIES)], dev)
+              for k, n in enumerate(COMPACT_BURST_LANES)]
+    wants = [torch.nonzero(x["mask"]).squeeze(1) for x in inputs]
+    bufs = [entry_args(x)[1] for x in inputs]
+    out_lanes = torch.empty(max(COMPACT_BURST_LANES), dtype=torch.int64, device=dev)
+    for i in range(COMPACT_BURST):
+        k = i % len(inputs)
+        x = inputs[k]
+        lanes, (pos, _, _) = compact.compact_kernel(x["mask"], None, entry_args(x)[0],
+                                                    bufs[k], out_lanes)
+        if not (torch.equal(lanes, wants[k]) and torch.equal(pos, x["pos"][wants[k]])):
+            raise AssertionError(f"compact burst: launch {i} ({x['mask'].numel()} "
+                                 f"lanes) differs from torch.nonzero")
+    burst = {"launches": COMPACT_BURST, "lanes": COMPACT_BURST_LANES}
+
+    # Whole frames on the kernel route, and with the compaction's route
+    # forced to torch.
+    w, h = COMPACT_FRAME["width"], COMPACT_FRAME["height"]
+    frames = {}
+    for name in COMPACT_CONFIGS:
+        with open(os.path.join(HERE, "portbench", "configs", f"{name}.json")) as f:
+            config = json.load(f)
+        scene, cc = program_scene(config, dev), config["camera"]
+        cam = Camera.look_at(origin=cc["origin"], target=cc["look_at"],
+                             fov=camera_fov(cc, w, h), device=dev)
+        runs = {}
+        for route in ("kernel", "torch"):
+            before = dict(COUNTS)
+            counts = (compact.compact_kernel.launches, shade.shade_kernel.launches)
+            real = compact.route
+            if route == "torch":
+                compact.route = lambda scene, *tensors: False
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                img, rays = render(scene, cam, **COMPACT_FRAME, seed=COMPACT_SEED)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            finally:
+                compact.route = real
+            runs[route] = dict(
+                img=img, rays=rays, wall=wall,
+                lanes={k: COUNTS[k] - before[k] for k in ("compact.kernel_lanes",
+                                                          "compact.torch_lanes")},
+                compact=compact.compact_kernel.launches - counts[0],
+                shade=shade.shade_kernel.launches - counts[1])
+        k, t_ = runs["kernel"], runs["torch"]
+        if not (k["compact"] and k["lanes"]["compact.kernel_lanes"]
+                and not k["lanes"]["compact.torch_lanes"]):
+            raise AssertionError(f"compact {name} frame: kernel route {k['lanes']}, "
+                                 f"{k['compact']} launches")
+        if t_["compact"] or t_["lanes"]["compact.kernel_lanes"] or not t_["shade"]:
+            raise AssertionError(f"compact {name} frame: torch route {t_['lanes']}, "
+                                 f"{t_['compact']} launches, {t_['shade']} shade_kernel")
+        if k["rays"] != t_["rays"] or not _same_bits(k["img"], t_["img"]):
+            raise AssertionError(f"compact {name} frame: kernel route {k['rays']} rays, "
+                                 f"torch route {t_['rays']}; "
+                                 f"{int((k['img'] != t_['img']).any(-1).sum())} pixels "
+                                 f"differ")
+        frames[name] = dict(rays=k["rays"], mean=float(k["img"].mean()),
+                            launches=k["compact"], lanes=k["lanes"]["compact.kernel_lanes"],
+                            wall=k["wall"], torch_wall=t_["wall"])
+    torch.cuda.empty_cache()
+
+    # A bounce's compaction at a loop's width: kernel (events, host a call,
+    # device), the torch compaction it replaces, the bytes bound.
+    x = compact_lanes(gen, COMPACT_TIMED, COMPACT_TIMED_LIVE, dev)
+    payload, outs = bounce_args(x)
+    lanes_buf = torch.empty(COMPACT_TIMED, dtype=torch.int64, device=dev)
+    image = x["image"].clone()
+    call = lambda: compact.compact_kernel(x["mask"], x["ids"], payload, outs,
+                                          lanes_buf, (x["light"], image))
+
+    def torch_chain():  # the loop's compaction as it stood before the kernel
+        keep = torch.nonzero(x["mask"]).squeeze(1)
+        full = x["image"].index_copy(0, x["ids"], x["light"])
+        return full, [t[keep] for t in (x["ids"], *payload, x["mask"])]
+
+    timed = split_times(call, "compact_kernel")
+    timed["plain"] = cuda_ms(torch_chain, 20)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        torch_chain()
+    timed["plain host"] = (time.perf_counter() - t) / 200 * 1e3
+    torch.cuda.synchronize()
+    m = int(x["mask"].sum())
+    row = sum(t[0].numel() * t.element_size() for t in payload)  # 56 bytes
+    # Read: every mask byte and id; the live lanes' rows; the dead lanes'
+    # radiance. Written: the live lanes' ids and rows; the dead lanes'
+    # radiance.
+    timed["bytes"] = (COMPACT_TIMED * (1 + 8) + m * (row + 8 + row)
+                      + (COMPACT_TIMED - m) * 2 * 12)
+    timed["bound"] = bound(0, 0, timed["bytes"])
+    timed["live"] = m
+    return {"cases": cases, "burst": burst, "frames": frames, "timed": timed,
+            "report": _build.ptxas_report("compact_kernel")}
+
+
 def check_modes(dev, run=MODES_RUN) -> dict:
     """Phase 6. Returns ``{mode: (seconds, traced rays, search_brute
     launches)}``; raises on a broken identity."""
@@ -2194,6 +2402,7 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
 
     from raytracingc_tpu_torch.camera import Camera, primary_rays
     from raytracingc_tpu_torch.diff import fit_camera, fit_scene
+    from raytracingc_tpu_torch.ops.compact import compact_kernel
     from raytracingc_tpu_torch.ops.search_bitmask import search_bitmask
     from raytracingc_tpu_torch.ops.shade import shade_kernel
     from raytracingc_tpu_torch.render.integrator import trace_accumulate
@@ -2253,13 +2462,16 @@ def run_training(dev, run=TRAIN, steps=TRAIN_STEPS, tessellate=TRAIN_TESSELLATE)
     def timed(name, fit, **kw):
         sync()
         k2, shaded = search_bitmask.launches, shade_kernel.launches
+        compacted = compact_kernel.launches
         t = time.time()
         result, losses = fit(**kw)
         sync()
         out[name] = (losses, time.time() - t, search_bitmask.launches - k2)
-        if shade_kernel.launches != shaded:  # a fit's steps take the torch route
+        # A fit's steps take the torch route.
+        if shade_kernel.launches != shaded or compact_kernel.launches != compacted:
             raise AssertionError(f"run q {name}: shade_kernel launched "
-                                 f"{shade_kernel.launches - shaded} times")
+                                 f"{shade_kernel.launches - shaded} times, "
+                                 f"compact_kernel {compact_kernel.launches - compacted}")
         return result
 
     for name, fit in fits.items():
@@ -2306,6 +2518,7 @@ def kernel_counters() -> dict:
     from raytracingc_tpu_torch.ops.search_range import search_range
     from raytracingc_tpu_torch.ops.search_union import search_union
     from raytracingc_tpu_torch.ops.search_words import search_words
+    from raytracingc_tpu_torch.ops.compact import compact_kernel
     from raytracingc_tpu_torch.ops.shade import shade_kernel
     from raytracingc_tpu_torch.tools import smem_probe
 
@@ -2313,7 +2526,7 @@ def kernel_counters() -> dict:
             "search_packed": search_packed, "search_range": search_range,
             "search_words": search_words, "search_mxu": search_mxu,
             "search_union": search_union, "smem_probe": smem_probe.smem_probe,
-            "shade_kernel": shade_kernel}
+            "shade_kernel": shade_kernel, "compact_kernel": compact_kernel}
 
 
 def _same_bits(a, b) -> bool:
@@ -2995,7 +3208,7 @@ def main() -> int:
         "search_range_kernel",
         "search_words_kernel", "range_items_kernel", "words_items_kernel",
         "unpack_keys_kernel", "search_mxu_kernel", "mxu_pack_kernel",
-        "mxu_items_kernel", "shade_kernel", "cull_words_kernel")}
+        "mxu_items_kernel", "shade_kernel", "cull_words_kernel", "compact_kernel")}
     spilled = [k for k in NO_SPILLS if re.search(r"[1-9]\d* bytes spill", reports[k])]
     if spilled:
         raise AssertionError(f"ptxas spills in {spilled}: {reports}")
@@ -3125,6 +3338,28 @@ def main() -> int:
               f"rays; device at {v['bound'][0] / v['profiler']:.1%}), "
               f"{v['nonzero']} nonzero words"
               for tag, v in cull["timed"].items()))
+
+    # 3h. The compaction kernel vs torch.nonzero and the gathers, and a
+    # frame of each benchmark scene on each route.
+    t = time.time()
+    comp = check_compact_kernel(dev, np.random.default_rng(COMPACT_SEED))
+    ct = comp["timed"]
+    phase("kernel", t, f"compact_kernel == torch.nonzero and the gathers (its plain "
+          f"version) bitwise on {comp['cases']} cases ({COMPACT_LANES} lanes x "
+          f"{COMPACT_DENSITIES} live; a bounce's with ids and the write-back, the "
+          f"entry's without); {comp['burst']['launches']} launches back to back over "
+          f"{comp['burst']['lanes']} lanes, each == torch.nonzero; " + "; ".join(
+              f"{name} 1080p 2 spp 8 bounces: kernel route == compaction forced to "
+              f"torch, {fr['rays']} rays, every pixel's bits, mean {fr['mean']:.5f}, "
+              f"{fr['launches']} compact_kernel launches over {fr['lanes']} lanes, "
+              f"wall {fr['wall']:.3f}s [torch route {fr['torch_wall']:.3f}s]"
+              for name, fr in comp["frames"].items())
+          + f"; a bounce at {COMPACT_TIMED} lanes ({ct['live']} live): events "
+          f"{ct['ms']:.4f} ms (host {ct['host']:.4f} ms a call, device "
+          f"{ct['profiler']:.4f} ms a launch by torch.profiler), the torch "
+          f"compaction {ct['plain']:.4f} ms (host {ct['plain host']:.4f} ms a call), "
+          f"bound {ct['bound'][0]:.5f} ms ({ct['bound'][1]}, {ct['bytes']} bytes; "
+          f"device at {ct['bound'][0] / ct['profiler']:.1%}); ptxas: {comp['report']}")
 
     # 4. Main path: the CLI in default mode and under the knobs that pick a
     # kernel, then the two tools, on the card. Every kernel's count is set
@@ -3493,7 +3728,8 @@ def main() -> int:
     # table makes it test (live rays x n_live for brute).
     src = "raytracingc_tpu_torch/csrc/{}.cu"
     sources = {"search_union": src.format("search_words"),
-               "shade_kernel": src.format("shade")}
+               "shade_kernel": src.format("shade"),
+               "compact_kernel": src.format("compact")}
     tpu = "raytracingc_tpu/ops/intersect_pallas.py:{}"
     packet_row = lambda label: (packet_times[label], packet_bound[label])
     k1 = timed[BRUTE_TIMED]
@@ -3524,6 +3760,8 @@ def main() -> int:
          (cull["timed"][f"primary R={CULL_TIMED_RAYS[0]}"]["ms"],
           cull["timed"][f"primary R={CULL_TIMED_RAYS[0]}"]["plain"]),
          cull["timed"][f"primary R={CULL_TIMED_RAYS[0]}"]["bound"], 0.0),
+        ("compact_kernel", "none (XLA ran fixed widths; torch.nonzero and the "
+         "gathers of render/integrator.py)", (ct["ms"], ct["plain"]), ct["bound"], 0.0),
     ]
     phase("total", t0, "chip_smoke.py up to the kernel line")
     print(smi)

@@ -75,6 +75,9 @@ _SIGNATURES = {
     "rtc_shade_open": ([_UINT, _VOID_P, _VOID_P, _UINT] + [_VOID_P] * 4 + [_INT]
                        + [_VOID_P] * 4, _INT),
     "rtc_cull_words": ([_VOID_P] * 5 + [_INT] * 2 + [_VOID_P] * 2, _INT),
+    "rtc_compact": ([_VOID_P, _VOID_P, _INT, _VOID_P, _INT] + [_VOID_P] * 3
+                    + [_UINT] * 2 + [_VOID_P] * 3, _INT),
+    "rtc_compact_word": ([_VOID_P], _INT),
     "rtc_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -30,7 +30,11 @@ The resolve, the bounce step, the environment light and the RNG draws of
 each bounce go through ``ops/shade.py``: on a card, where no derivative can
 be seen, one CUDA kernel launch per call (``csrc/shade.cu``) with the torch
 composition's bits (a block-sharded scene's resolve stays in torch);
-otherwise the torch composition itself.
+otherwise the torch composition itself. On the same route the compactions
+(the trace entry's, each bounce's and the hit front's selection) go through
+``ops/compact.py``: one launch of ``csrc/compact.cu`` and one read of the
+count each, the same lanes in the same order, into buffers allocated once a
+call, the dead lanes' radiance written into the call's own image in place.
 
 Traced rays are counted as Python integers (exact at any size; the JAX
 package sums them in float32).
@@ -57,7 +61,7 @@ import torch
 
 from raytracingc_tpu_torch import rng
 from raytracingc_tpu_torch.camera import primary_rays
-from raytracingc_tpu_torch.ops import shade
+from raytracingc_tpu_torch.ops import compact, shade
 from raytracingc_tpu_torch.ops.intersect import (
     Hit,
     nearest_hit,
@@ -103,11 +107,22 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
             pos, d, thr, light_full, state, first_hit, alive, scene)
         max_bounce -= 1
 
+    kernel = compact.route(scene, pos, d, thr, light_full)
     with trace_annotation("rtc.compact"):
-        lanes, union = ((torch.arange(r, device=dev), False) if active is None
-                        else live_lanes(active))
-        alive = active[lanes] if union else None
-        pos, d, thr, state, light = (x[lanes] for x in (pos, d, thr, state, light_full))
+        compact.tally(kernel, r)
+        if kernel:
+            comp = compact.Buffers(r)
+            mask = (torch.ones((r,), dtype=torch.bool, device=dev) if active is None
+                    else active.contiguous())
+            lanes, (pos, d, thr, state, light) = comp(
+                mask, None, [x.contiguous() for x in (pos, d, thr, state, light_full)])
+            union, alive = False, None
+        else:
+            lanes, union = ((torch.arange(r, device=dev), False) if active is None
+                            else live_lanes(active))
+            alive = active[lanes] if union else None
+            pos, d, thr, state, light = (x[lanes] for x in (pos, d, thr, state,
+                                                            light_full))
     for _ in range(max_bounce):
         n = lanes.numel()
         if n == 0:
@@ -119,15 +134,22 @@ def trace_paths(origins, dirs, rng_state, scene: Scene, max_bounce: int,
                 pos, d, thr, light, state,
                 nearest_hit(pos, d, scene, backend=backend), alive, scene)
             with trace_annotation("rtc.compact"):
-                keep, union = live_lanes(alive)
-                if keep.numel() < n:
-                    light_full = light_full.index_copy(0, lanes, light)
-                    lanes, pos, d, thr, state, light, alive = (
-                        x[keep] for x in (lanes, pos, d, thr, state, light, alive)
-                    )
+                compact.tally(kernel, n)
+                if kernel:  # the dead lanes' radiance goes into light_full
+                    lanes, (pos, d, thr, state, light) = comp(
+                        alive, lanes, (pos, d, thr, state, light), (light, light_full))
+                else:
+                    keep, union = live_lanes(alive)
+                    if keep.numel() < n:
+                        light_full = light_full.index_copy(0, lanes, light)
+                        lanes, pos, d, thr, state, light, alive = (
+                            x[keep] for x in (lanes, pos, d, thr, state, light, alive)
+                        )
             if not union:
                 alive = None
     with trace_annotation("rtc.compact"):
+        if kernel:  # light_full is this call's own: written in place
+            return light_full.index_copy_(0, lanes, light), count
         return light_full.index_copy(0, lanes, light), count
 
 
@@ -308,20 +330,30 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
     r = origins.shape[0]
     count = tally("integrator.lanes", lane_count(act) * spp)
 
+    kernel = compact.route(scene, origins, dirs, hit0.point, hit0.normal,
+                           hit0.albedo, hit0.smoothness)
     with trace_annotation("rtc.compact"):
-        sel, union = live_lanes(hitm)
-        width = sel.numel()
-        point, normal, albedo = hit0.point[sel], hit0.normal[sel], hit0.albedo[sel]
-        smooth = hit0.smoothness[sel][:, None]
-        ids = ray_ids[sel]
-        # Under vmap, the primary-hit lanes of any element: a slot that missed
-        # in this element stays dead.
-        hit_sel = hitm[sel] if union else None
+        compact.tally(kernel, r)
+        if kernel:
+            sel, (point, normal, albedo, smooth, ids, dirs_sel) = compact.Buffers(
+                r, sets=1)(hitm, None, [x.contiguous() for x in (
+                    hit0.point, hit0.normal, hit0.albedo, hit0.smoothness, ray_ids,
+                    dirs)])
+            width, smooth, hit_sel = sel.numel(), smooth[:, None], None
+        else:
+            sel, union = live_lanes(hitm)
+            width = sel.numel()
+            point, normal, albedo = hit0.point[sel], hit0.normal[sel], hit0.albedo[sel]
+            smooth = hit0.smoothness[sel][:, None]
+            ids = ray_ids[sel]
+            # Under vmap, the primary-hit lanes of any element: a slot that
+            # missed in this element stays dead.
+            hit_sel = hitm[sel] if union else None
     # Post-bounce-0 throughput is deterministic: albedo / p with
     # p = max(albedo) (the roulette renorm); only survival is random.
     p = albedo.amax(dim=-1)
     thr = albedo / torch.where(p > 0.0, p, 1.0)[:, None]
-    spec = _reflect(dirs[sel], normal)
+    spec = _reflect(dirs_sel if kernel else dirs[sel], normal)
     if group > 1:
         widen = lambda x: None if x is None else x.repeat(
             (group,) + (1,) * (x.dim() - 1))
@@ -349,8 +381,9 @@ def _hit_front_accumulate(origins, dirs, scene, ray_ids, seed, offset, spp,
             count += cnt
 
     with trace_annotation("rtc.compact"):
-        contrib = torch.zeros((r, 3), dtype=torch.float32,
-                              device=origins.device).index_copy(0, sel, acc)
+        contrib = torch.zeros((r, 3), dtype=torch.float32, device=origins.device)
+        contrib = (contrib.index_copy_(0, sel, acc) if kernel
+                   else contrib.index_copy(0, sel, acc))
     return (light0 * float(spp) + contrib) / float(spp), count
 
 

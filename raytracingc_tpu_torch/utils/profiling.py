@@ -41,12 +41,14 @@ _NO_SPAN = contextlib.nullcontext()
 # brute-force search (every lane given to it, times the live triangles), the
 # (packet, block) pairs the bitmask search walks (8 x 128 ray-triangle tests
 # each; here the plain version's, the kernel's on its card), the 8-ray
-# packets handed to any culling prelude (ceil(R / 8) a call), and the lanes
-# of the resolve and shading calls (ops/shade.py) by their route: the CUDA
-# kernel or the torch composition.
+# packets handed to any culling prelude (ceil(R / 8) a call), the lanes of
+# the resolve and shading calls (ops/shade.py) by their route: the CUDA
+# kernel or the torch composition, and the lanes handed to the integrator's
+# compactions (ops/compact.py) by their route.
 COUNTS = dict.fromkeys(("integrator.bounces", "integrator.lanes", "search.pairs",
                         "search.bitmask_blocks", "search.cull_packets",
-                        "shade.kernel_lanes", "shade.torch_lanes"), 0)
+                        "shade.kernel_lanes", "shade.torch_lanes",
+                        "compact.kernel_lanes", "compact.torch_lanes"), 0)
 
 
 def trace_annotation(name: str, **args):
@@ -71,6 +73,7 @@ def counters() -> dict:
     ``search.bitmask_blocks`` the host's and every card's count together,
     and each kernel wrapper's ``.launches`` as ``launches.<wrapper>``."""
     from raytracingc_tpu_torch.ops import (
+        compact,
         culling,
         intersect_mxu,
         search_bitmask,
@@ -87,7 +90,8 @@ def counters() -> dict:
     for fn in (search_brute.search_brute, search_bitmask.search_bitmask,
                search_packed.search_packed, search_words.search_words,
                search_range.search_range, search_union.search_union,
-               intersect_mxu.search_mxu, shade.shade_kernel, culling.cull_words):
+               intersect_mxu.search_mxu, shade.shade_kernel, culling.cull_words,
+               compact.compact_kernel):
         out[f"launches.{fn.__name__}"] = fn.launches
     return out
 

@@ -216,6 +216,6 @@ def test_counters_hold_the_wrappers_launch_counters(monkeypatch):
     assert {k for k in snap if k.startswith("launches.")} == {
         f"launches.search_{k}" for k in
         ("brute", "bitmask", "packed", "words", "range", "union", "mxu")} | {
-        "launches.shade_kernel", "launches.cull_words"}
+        "launches.shade_kernel", "launches.cull_words", "launches.compact_kernel"}
     assert {"integrator.bounces", "integrator.lanes", "search.pairs",
             "shade.kernel_lanes", "shade.torch_lanes"} <= set(snap)
